@@ -5,18 +5,22 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds every kernel of the port's main path from the checkout's sources,
-holds each against its plain PyTorch version at the main path's shapes,
+It builds every kernel of the port's main paths from the checkout's sources
+(the selective-scan forward and backward, one nvcc each, in parallel),
+holds each against its plain PyTorch version at the main paths' shapes,
 serves the full-width ``1mlp_g2`` dehazer through the CLI's ``--mode serve``
-(whole-image and ``--tile``) with kernel launch counts, and compares the
-whole forward on the kernel with the plain scan.  Each phase prints one JSON
-line; any failed check exits non-zero before the last line, which is
-``{"ok": true, "device": {...}}``.  Weights are random, from a seed: no
-trained checkpoint is in the repository.
+(whole-image and ``--tile``) with kernel launch counts, compares the whole
+forward and the whole gradient on the kernels with the plain scans, times
+and profiles a batch-4 256x256 train step, and trains through the CLI's
+``--mode train`` for 2 epochs on a synthetic dataset and resumes for a third,
+with launch counts.  Each phase prints one JSON line; any failed check exits
+non-zero before the last line, which is ``{"ok": true, "device": {...}}``.
+Weights are random, from a seed: no trained checkpoint is in the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -26,6 +30,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,8 +42,16 @@ PEAK_FP32_FLOPS = 67e12
 SFU_EXP_PER_CLOCK_PER_SM = 16
 TOLS = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}  # rtol, atol
 MODEL_TOL = (1e-3, 3e-4)
+# gradients, per tensor: |got - want| <= rtol |want| + atol max(1, max |want|);
+# fp32 sums in another order (dB/dC by atomics, in no fixed order); with
+# bf16 inputs du, ddelta, dB and dC come back rounded to bf16
+GRAD_TOLS = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+# whole-model gradients, per parameter: max |got - want| <= rel max |want| + abs
+MODEL_GRAD_TOL = (1e-3, 1e-5)
+GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias", "dy_accum")
 PATH_LS = (16384, 4096, 1024)  # scan lengths of a 256x256 forward
 LAUNCHES_PER_FORWARD = 48      # 12 SS2D x 4 directions
+TRAIN_BATCH = 4
 
 
 def emit(**fields):
@@ -109,6 +122,38 @@ def bound(L, dim=192, N=16, in_bytes=4, out_bytes=4, accum=False):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sfu_ms(L, clock_mhz, sms, dim=192, N=16):
+    """The special-function units' floor: dim * N * L exponentials at 16 per
+    clock per SM."""
+    return dim * N * L / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6) * 1e3
+
+
+def bound_bwd(L, clock_mhz, sms, dim=192, N=16, in_bytes=4):
+    """Least time (ms) for one backward call: the larger of the bytes moved
+    once (u, delta, B, C, du, ddelta in the input dtype; dy, the chunk
+    states, dB, dC, A, D, bias, dA, dD, dbias in fp32) at the memory rate,
+    22*L*D*N + 10*L*D fp32 operations (the forward's 9 per state and element
+    again, 13 for the adjoint and its sums) at the fp32 rate, and the
+    exponentials' floor."""
+    n_chunks = -(-L // 256)
+    nbytes = (dim * L * (4 * in_bytes + 4) + 2 * N * L * (in_bytes + 4)
+              + dim * n_chunks * N * 4 + 2 * (dim * N + 2 * dim) * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (22 * L * dim * N + 10 * L * dim) / PEAK_FP32_FLOPS * 1e3
+    t_sfu = sfu_ms(L, clock_mhz, sms, dim, N)
+    return max(t_bytes, t_ops, t_sfu), "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
+
+
+def grad_err(got, want, rtol, atol):
+    """(max |got - want|, whether every element is within
+    rtol |want| + atol max(1, max |want|))."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = max(1.0, float(want.abs().max()))
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= atol * scale + rtol * want.abs()).all())
+    return float(diff.max()), ok
+
+
 def phase_kernel(scan, clock_mhz, sms):
     """Kernel vs its plain version on the card at the path's shapes."""
     worst = 0.0
@@ -134,6 +179,22 @@ def phase_kernel(scan, clock_mhz, sms):
                      f"y_accum={acc} in={inp} out={out}: max abs err {err}")
             if out == torch.float32:
                 worst = max(worst, err)
+        from focalnet_tpu_torch.ops.scan_bwd_ref import chunk_states_ref
+        from focalnet_tpu_torch.ops.selective_scan_cuda import selective_scan_cuda
+
+        for L in PATH_LS + (1000,):  # the chunk states the backward kernel reads
+            x, _ = scan_inputs(L)
+            for rev in (False, True):
+                _, hchk = selective_scan_cuda(**x, delta_softplus=True, reverse=rev,
+                                              chunk_states=True)
+                want = chunk_states_ref(x["u"], x["delta"], x["A"], x["B"],
+                                        x["delta_bias"], True, rev)
+                torch.cuda.synchronize()
+                err, ok = max_err(hchk, want, *TOLS[torch.float32])
+                emit(phase="kernel_chunk_states", L=L, reverse=rev, max_abs_err=err, ok=ok)
+                if not ok:
+                    fail(f"chunk states disagree at L={L} reverse={rev}: {err}")
+                worst = max(worst, err)
         timing = {}
         for L in PATH_LS:
             x, yacc = scan_inputs(L)
@@ -150,43 +211,208 @@ def phase_kernel(scan, clock_mhz, sms):
     return worst, timing
 
 
-def phase_profile(model, x, reps=5):
-    """Where a 256² forward's device time goes: torch.profiler over ``reps``
-    forwards; kernel time by category and name, and the device's idle share
+def phase_kernel_bwd(scan, fwd, bwd, bwd_ref, clock_mhz, sms):
+    """The backward kernel vs its plain version at the path's shapes, through
+    the autograd Function (the forward kernel with chunk states, then the
+    backward kernel) against the plain Function (plain forward, plain
+    adjoint): every gradient, with and without y_accum, both directions,
+    fp32 and bf16 in.  Then K2's own time vs the plain adjoint's."""
+    worst = 0.0
+    for L in PATH_LS + (1000,):
+        for rev in (False, True):
+            for acc in (False, True):
+                for inp in (torch.float32, torch.bfloat16):
+                    x, dy = scan_inputs(L, dtype=inp, seed=1)
+                    yacc = torch.randn_like(dy) if acc else None
+                    grads = []
+                    for backend in ("cuda", "chunked"):
+                        leaves = {k: v.clone().requires_grad_() for k, v in x.items()}
+                        ya = yacc.clone().requires_grad_() if acc else None
+                        y = scan(**leaves, delta_softplus=True, backend=backend,
+                                 reverse=rev, y_accum=ya)
+                        grads.append(torch.autograd.grad(
+                            y, list(leaves.values()) + ([ya] if acc else []), dy))
+                    torch.cuda.synchronize()
+                    rtol, atol = GRAD_TOLS[inp]
+                    errs = {}
+                    for name, g, w in zip(GRAD_NAMES, *grads):
+                        err, ok = grad_err(g, w, rtol, atol)
+                        errs[name] = err
+                        if not ok:
+                            fail(f"backward kernel: {name} disagrees at L={L} reverse={rev} "
+                                 f"y_accum={acc} in={inp}: max abs err {err}")
+                    emit(phase="kernel_bwd_vs_plain", L=L, reverse=rev, y_accum=acc,
+                         in_dtype=str(inp), max_abs_err=errs, rtol=rtol, atol=atol, ok=True)
+                    if inp == torch.float32:
+                        worst = max(worst, *errs.values())
+    timing = {}
+    with torch.inference_mode():
+        for L in PATH_LS:
+            x, dy = scan_inputs(L, seed=1)
+            for rev in (False, True):
+                _, hchk = fwd(**x, delta_softplus=True, reverse=rev, chunk_states=True)
+                args = (*x.values(), dy)
+                ms = time_ms(lambda: bwd(*args, hchk, True, rev))
+                plain = time_ms(lambda: bwd_ref(*args, True, rev), reps=5, warmup=1)
+                b, by = bound_bwd(L, clock_mhz, sms)
+                emit(phase="kernel_bwd_time", L=L, reverse=rev, ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, sfu_exp_ms=sfu_ms(L, clock_mhz, sms))
+                timing[(L, rev)] = (ms, plain, b, by)
+    return worst, timing
+
+
+def phase_profile(name, fn, reps):
+    """Where the device time of ``reps`` calls of ``fn`` goes: torch.profiler
+    over them, kernel time by category and name, and the device's idle share
     between the first kernel's start and the last one's end."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                model(x)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # e.g. Adam.step's range
     if not kernels:
-        emit(phase="profile", note="torch.profiler recorded no device events")
+        emit(phase=name, note="torch.profiler recorded no device events")
         return
     span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
     by_name, by_kind = {}, {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
         low = e.name.lower()
-        kind = ("scan" if "selective_scan" in low else
+        kind = ("scan_bwd" if "selective_scan_bwd" in low else
+                "scan_fwd" if "selective_scan" in low else
                 "conv" if "conv" in low or "cudnn" in low or "implicit" in low else
                 "matmul" if "gemm" in low or "xmma" in low or "cutlass" in low else
+                "fft" if "fft" in low else
                 "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + us)
     busy = sum(by_kind.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    emit(phase="profile", forwards=reps, kernels_per_forward=len(kernels) / reps,
-         device_ms_per_forward=busy / reps / 1e3, span_ms_per_forward=span / reps / 1e3,
+    emit(phase=name, calls=reps, kernels_per_call=len(kernels) / reps,
+         device_ms_per_call=busy / reps / 1e3, span_ms_per_call=span / reps / 1e3,
          idle_share=1.0 - busy / span,
-         ms_per_forward_by_kind={k: v / reps / 1e3 for k, v in sorted(by_kind.items())},
-         top=[dict(name=k[:80], calls=n // reps, ms_per_forward=t / reps / 1e3)
+         ms_per_call_by_kind={k: v / reps / 1e3 for k, v in sorted(by_kind.items())},
+         top=[dict(name=k[:80], launches=n // reps, ms_per_call=t / reps / 1e3)
               for k, (n, t) in top])
+
+
+def phase_grad(build_net, counters, card):
+    """One backward of the full-width model at batch 4, 256x256, on the
+    kernels vs on the plain scans (per-parameter gradients, launch counts),
+    then ms per train step (loss, backward, clip, Adam) of each, and a
+    profile of the kernels' train step."""
+    from focalnet_tpu_torch.train.losses import multiscale_loss
+    from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    gen = torch.Generator().manual_seed(4321)
+    x = torch.rand(TRAIN_BATCH, 256, 256, 3, generator=gen).cuda()
+    gt = torch.rand(TRAIN_BATCH, 256, 256, 3, generator=gen).cuda()
+    models, grads = [], []
+    for backend in ("cuda", "chunked"):
+        model = build_net("1mlp_g2", device="cuda", drop_path_rate=0.0,
+                          scan_backend=backend,
+                          generator=torch.Generator().manual_seed(1234)).train()
+        for c in counters:
+            c.launches = 0
+        multiscale_loss(model(x), gt)[0].backward()
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        if launches != ([LAUNCHES_PER_FORWARD] * 2 if backend == "cuda" else [0, 0]):
+            fail(f"{backend}: one train backward launched {launches} (K1, K2)")
+        models.append(model)
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+        if backend == "cuda":
+            k_launches = launches
+    worst, worst_key, max_abs = 0.0, None, 0.0
+    rel, ab = MODEL_GRAD_TOL
+    for k, w in grads[1].items():
+        err = float((grads[0][k] - w).abs().max())
+        lim = rel * float(w.abs().max()) + ab
+        if not err <= lim:
+            fail(f"whole-model gradient of {k}: kernel vs plain max abs err {err} > {lim}")
+        max_abs = max(max_abs, err)
+        if err / lim > worst:
+            worst, worst_key = err / lim, k
+    steps = [make_train_step(m, make_optimizer(m)) for m in models]
+    ms = time_ms(lambda: steps[0](x, gt), reps=10, warmup=3)
+    plain_ms = time_ms(lambda: steps[1](x, gt), reps=3, warmup=1)
+    emit(phase="grad_256", batch=TRAIN_BATCH, params=len(grads[0]),
+         max_abs_err=max_abs, max_err_over_limit=worst, worst_param=worst_key, tol_rel=rel, tol_abs=ab,
+         launches_fwd=k_launches[0], launches_bwd=k_launches[1],
+         train_step_ms=ms, plain_train_step_ms=plain_ms, card=card,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del models, grads, steps
+    torch.cuda.empty_cache()
+    model = build_net("1mlp_g2", device="cuda",
+                      generator=torch.Generator().manual_seed(1234)).train()
+    from focalnet_tpu_torch.models import set_drop_path_generator
+
+    set_drop_path_generator(model, torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, make_optimizer(model))
+    phase_profile("profile_train_step", lambda: step(x, gt), reps=3)
+    return ms, plain_ms
+
+
+def phase_train_cli(cli_main, counters, tmp):
+    """``--mode train`` through the CLI at full width: 2 epochs of a synthetic
+    8-pair dataset (2 steps an epoch at batch 4, validation on 2 images
+    every epoch), then ``--resume`` for a third.  Launch counts: 48 of each
+    kernel per step, 48 forward launches per validated image."""
+    from focalnet_tpu_torch.data.reside import make_synthetic_dataset
+    from focalnet_tpu_torch.utils.convert import load_checkpoint
+
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "weights")
+    make_synthetic_dataset(data, n_train=4, n_test=1, hw=(256, 256), seed=0)
+    common = ["--mode", "train", "--data_dir", data, "--batch_size", str(TRAIN_BATCH),
+              "--crop_size", "256", "--print_freq", "1", "--save_freq", "1",
+              "--valid_freq", "1", "--num_worker", "4", "--model_save_dir", out]
+    runs = []
+    for epochs, extra in ((2, []), (3, ["--resume", os.path.join(out, "model.pkl")])):
+        for c in counters:
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_main(common + ["--num_epoch", str(epochs)] + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+        n_epochs = epochs - (2 if extra else 0)
+        steps, val_images = 2 * n_epochs, 2 * n_epochs
+        expected = [LAUNCHES_PER_FORWARD * (steps + val_images), LAUNCHES_PER_FORWARD * steps]
+        log = buf.getvalue()
+        rolling = load_checkpoint(os.path.join(out, "model.pkl"), full=True)
+        emit(phase="train_cli", num_epoch=epochs, resume=bool(extra), seconds=seconds,
+             launches_fwd=launches[0], launches_bwd=launches[1],
+             expected_launches=expected, rolling_epoch=rolling["epoch"],
+             log_tail=log.strip().splitlines()[-4:])
+        if launches != expected:
+            fail(f"train run: launches (K1, K2) {launches}, expected {expected}")
+        if rolling["epoch"] != epochs:
+            fail(f"rolling checkpoint at epoch {rolling['epoch']}, expected {epochs}")
+        if extra and "Resume from 2" not in log:
+            fail("the resumed run did not report 'Resume from 2'")
+        if f"EPOCH: {epochs:02d}" not in log:
+            fail(f"no 'EPOCH: {epochs:02d}' line in the train log")
+        runs.append(launches)
+    names = ["model", "model_1", "model_2", "model_3", "Best", "Final"]
+    missing = [n for n in names if not os.path.exists(os.path.join(out, f"{n}.pkl"))]
+    if missing:
+        fail(f"checkpoints missing: {missing}")
+    with open(os.path.join(out, "train.metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [(r["pixel_loss"], r["fft_loss"]) for r in rows if "step" in r]
+    if len(losses) != 6 or not all(math.isfinite(v) for r in losses for v in r):
+        fail(f"train losses: {losses}")
+    emit(phase="train_cli_result", steps=len(losses), losses=losses,
+         psnr=[r["psnr"] for r in rows if "psnr" in r], checkpoints=names)
+    return runs[0]
 
 
 def serve_run(main, ckpt, requests, out_dir, extra, ss_cuda, expect_forwards):
@@ -219,10 +445,19 @@ def main():
     from focalnet_tpu_torch.main import main as cli_main
     from focalnet_tpu_torch.models import build_net
     from focalnet_tpu_torch.ops import _build
+    from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
     from focalnet_tpu_torch.ops.selective_scan import selective_scan
-    from focalnet_tpu_torch.ops.selective_scan_cuda import SOURCE, build, selective_scan_cuda
+    from focalnet_tpu_torch.ops.selective_scan_cuda import (
+        SOURCE,
+        SOURCE_BWD,
+        build,
+        build_bwd,
+        selective_scan_bwd_cuda,
+        selective_scan_cuda,
+    )
     from focalnet_tpu_torch.utils import save_checkpoint
 
+    counters = (selective_scan_cuda, selective_scan_bwd_cuda)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm", "csv,noheader,nounits"))
@@ -237,19 +472,28 @@ def main():
          triton=has_triton, cuda_home=os.environ.get("CUDA_HOME"),
          nvcc=_build.find_nvcc(), python=sys.version.split()[0])
 
-    # 2. build from the checkout's sources
-    lib_path = _build.library_path(SOURCE)
-    prebuilt = os.path.exists(lib_path)
-    t0 = time.perf_counter()
-    build()
-    build_s = time.perf_counter() - t0
-    with open(lib_path + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    emit(phase="build", seconds=build_s, prebuilt=prebuilt,
-         library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
+    # 2. build from the checkout's sources: one nvcc per kernel, in parallel
+    def timed_build(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
 
-    # 3. kernel vs plain, and times
+    sources = ((SOURCE, build), (SOURCE_BWD, build_bwd))
+    prebuilt = [os.path.exists(_build.library_path(src)) for src, _ in sources]
+    with ThreadPoolExecutor(len(sources)) as ex:
+        seconds = list(ex.map(timed_build, [fn for _, fn in sources]))
+    for (src, _), pre, secs in zip(sources, prebuilt, seconds):
+        lib_path = _build.library_path(src)
+        with open(lib_path + ".log") as f:
+            ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        emit(phase="build", source=src, seconds=secs, prebuilt=pre,
+             library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
+
+    # 3. kernels vs plain, and times
     worst, timing = phase_kernel(selective_scan, clock_mhz, sms)
+    worst_bwd, timing_bwd = phase_kernel_bwd(
+        selective_scan, selective_scan_cuda, selective_scan_bwd_cuda,
+        selective_scan_bwd_ref, clock_mhz, sms)
 
     # 4. serve at full width through the CLI
     rng = np.random.default_rng(1234)
@@ -268,6 +512,7 @@ def main():
             ("tile_256", requests[3:], ["--tile", "256"], 1 + 4),  # warm-up + 4 tiles
         ):
             out_dir = os.path.join(tmp, mode)
+            selective_scan_bwd_cuda.launches = 0
             lines, launches, seconds, expected = serve_run(
                 cli_main, ckpt, reqs, out_dir, extra, selective_scan_cuda, forwards)
             for ln, (_, (h, w)) in zip(lines, reqs):
@@ -275,11 +520,13 @@ def main():
                 if img.shape != (h, w, 3):
                     fail(f"{mode}: answer {ln} has shape {img.shape}, want {(h, w, 3)}")
             emit(phase="serve", mode=mode, requests=len(reqs), answers=lines,
-                 launches=launches, expected_launches=expected, seconds=seconds)
-            if launches != expected:
-                fail(f"{mode}: {launches} kernel launches, expected {expected}")
+                 launches=launches, expected_launches=expected,
+                 launches_bwd=selective_scan_bwd_cuda.launches, seconds=seconds)
+            if launches != expected or selective_scan_bwd_cuda.launches:
+                fail(f"{mode}: {launches} forward and {selective_scan_bwd_cuda.launches} "
+                     f"backward kernel launches, expected {expected} and 0")
             if mode == "whole_image":
-                path_launches = launches
+                serve_launches = launches
 
         # 5. whole forward, kernel vs plain scan, on the card
         plain = build_net("1mlp_g2", device="cuda", scan_backend="chunked")
@@ -302,22 +549,35 @@ def main():
                 fail(f"one forward launched the kernel {fwd_launches} times")
             fwd_ms = time_ms(lambda: model(x))
             plain_ms = time_ms(lambda: plain(x))
-        emit(phase="forward_256", rtol=MODEL_TOL[0], atol=MODEL_TOL[1],
-             max_abs_err=errs, launches=fwd_launches, ms=fwd_ms, plain_ms=plain_ms,
-             card=card, after=smi("clocks.sm,power.draw,temperature.gpu"))
-        phase_profile(model, x)
+            emit(phase="forward_256", rtol=MODEL_TOL[0], atol=MODEL_TOL[1],
+                 max_abs_err=errs, launches=fwd_launches, ms=fwd_ms, plain_ms=plain_ms,
+                 card=card, after=smi("clocks.sm,power.draw,temperature.gpu"))
+            phase_profile("profile", lambda: model(x), reps=5)
+        del model, plain, got, want
+        torch.cuda.empty_cache()
 
-    ms, plain_ms, b, by = timing[(PATH_LS[0], False)]
+        # 6. whole gradient and train step at batch 4, 256x256
+        phase_grad(build_net, counters, card)
+
+        # 7. train through the CLI, then resume
+        train_launches = phase_train_cli(cli_main, counters, tmp)
+
     print(card, flush=True)
-    emit(kernels=[dict(
-        name="selective_scan_fwd", route="cuda",
-        source="focalnet_tpu_torch/ops/csrc/selective_scan_fwd.cu",
-        replaces="focalnet_tpu/ops/pallas_scan.py:347",
-        launches=path_launches, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"B=1 D=192 N=16 L={PATH_LS[0]} fp32, forward direction",
-        launches_per_forward=LAUNCHES_PER_FORWARD,
-    )])
+    entries = []
+    for name, src, line, t, err, launches in (
+        ("selective_scan_fwd", SOURCE, 347, timing, worst, train_launches[0]),
+        ("selective_scan_bwd", SOURCE_BWD, 421, timing_bwd, worst_bwd, train_launches[1]),
+    ):
+        ms, plain_ms, b, by = t[(PATH_LS[0], False)]
+        entries.append(dict(
+            name=name, route="cuda", source=f"focalnet_tpu_torch/ops/csrc/{src}",
+            replaces=f"focalnet_tpu/ops/pallas_scan.py:{line}",
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, library_ms=None,
+            shape=f"B=1 D=192 N=16 L={PATH_LS[0]} fp32, forward direction",
+        ))
+    entries[0]["launches_serve_3_requests"] = serve_launches
+    emit(kernels=entries)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})
 
 

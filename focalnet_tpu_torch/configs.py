@@ -1,8 +1,9 @@
-"""Model presets for the PyTorch port (counterpart of ``focalnet_tpu/configs.py``).
+"""Model presets and the training config for the PyTorch port (counterpart
+of ``focalnet_tpu/configs.py``).
 
 The port keeps its own copy: it imports nothing of ``focalnet_tpu``.  Only the
-fields the port's forward reads are here; the precision, checkpointing and
-mesh fields of the JAX config arrive with the slices that use them (ROADMAP).
+fields the port reads are here; the precision, checkpointing and mesh fields
+of the JAX config arrive with the slices that use them (ROADMAP).
 
     baseline  — conv ResBlock x 1 per stage (not ported yet)
     1mlp      — VSSG, gl_merge=True, ps_global=4, ps_local=2 (not ported yet)
@@ -55,6 +56,33 @@ class ModelConfig:
     scan_backend: str = "auto"  # auto | cuda | chunked | ref
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the reference's ``ITS/main.py`` defaults)."""
+
+    data_dir: str = "dataset/ITS"
+    batch_size: int = 4
+    learning_rate: float = 1e-4
+    num_epoch: int = 300
+    warmup_epochs: int = 3
+    lr_min: float = 1e-6
+    grad_clip: float = 0.001  # clip_grad_norm_(0.001) before every Adam step
+    fft_loss_weight: float = 0.1  # loss = content + 0.1 * fft
+    # micro-batches per optimizer step: activation memory scales with
+    # batch_size / grad_accum, the effective batch stays batch_size
+    grad_accum: int = 1
+    print_freq: int = 100
+    num_worker: int = 8
+    save_freq: int = 10
+    valid_freq: int = 10
+    crop_size: int = 256
+    seed: int = 1234
+    model_save_dir: str = "results/weights"
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
 

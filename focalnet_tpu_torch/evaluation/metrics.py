@@ -1,6 +1,6 @@
-"""Serving-side image helpers (counterpart of ``focalnet_tpu/evaluation/metrics.py``).
+"""Image helpers and PSNR (counterpart of ``focalnet_tpu/evaluation/metrics.py``).
 
-PSNR/SSIM and the evaluation protocol arrive with the eval slice (ROADMAP).
+SSIM and its pooling protocol arrive with the eval slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,6 +22,18 @@ def pad_to_multiple(x: np.ndarray, factor: int = 32):
     if padh or padw:
         x = np.pad(x, ((0, 0), (0, padh), (0, padw), (0, 0)), mode="reflect")
     return x, (h, w)
+
+
+def psnr_mse(pred: np.ndarray, label: np.ndarray) -> float:
+    """10 log10(1 / MSE), data range 1, the MSE in float64."""
+    mse = float(np.mean((pred.astype(np.float64) - label.astype(np.float64)) ** 2))
+    return float(10.0 * np.log10(1.0 / mse)) if mse > 0 else float("inf")
+
+
+def psnr_skimage(pred: np.ndarray, label: np.ndarray) -> float:
+    """skimage's peak_signal_noise_ratio(data_range=1): the same formula, a
+    separate entry point because the reference logs both."""
+    return psnr_mse(pred, label)
 
 
 def save_image(pred: np.ndarray, path: str) -> None:

@@ -2,14 +2,18 @@
 
 Usage:
     python -m focalnet_tpu_torch.main --mode serve --test_model <reference .pkl>
+    python -m focalnet_tpu_torch.main --mode train --data_dir dataset/ITS
 
-Serving is the only mode so far; train, test and infer follow in later
-slices (ROADMAP).  Runs on the CUDA card unless ``--device cpu``.
+Test and infer follow in a later slice (ROADMAP).  Runs on the CUDA card
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import random
 
 import numpy as np
@@ -23,9 +27,7 @@ def main(argv=None, inp=None, out=None):
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
-    from focalnet_tpu_torch.evaluation.serve import serve
     from focalnet_tpu_torch.models import build_net
-    from focalnet_tpu_torch.utils.convert import load_checkpoint
     from focalnet_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device or None)
@@ -36,6 +38,16 @@ def main(argv=None, inp=None, out=None):
         overrides["ssm_d_state"] = args.ssm_d_state
     if args.scan_backend:
         overrides["scan_backend"] = args.scan_backend
+    if args.mode == "train":
+        return _train(args, build_net(
+            args.preset, device=device,
+            generator=torch.Generator().manual_seed(args.seed), **overrides))
+
+    from focalnet_tpu_torch.evaluation.serve import serve
+    from focalnet_tpu_torch.utils.convert import load_checkpoint
+
+    if not args.test_model:
+        raise SystemExit("error: --mode serve needs --test_model")
     if args.pad_factor % 32 or args.pad_factor <= 0:
         raise SystemExit("error: --pad_factor must be a positive multiple of 32")
 
@@ -50,12 +62,34 @@ def main(argv=None, inp=None, out=None):
                  warm_shapes=warm, inp=inp, out=out, device=device)
 
 
+def _train(args, model):
+    """``--mode train``: the config is written beside the checkpoints."""
+    from focalnet_tpu_torch.configs import TrainConfig
+    from focalnet_tpu_torch.train import train
+
+    cfg = TrainConfig(
+        data_dir=args.data_dir, batch_size=args.batch_size,
+        learning_rate=args.learning_rate, num_epoch=args.num_epoch,
+        grad_accum=args.grad_accum, print_freq=args.print_freq,
+        num_worker=args.num_worker, save_freq=args.save_freq,
+        valid_freq=args.valid_freq, crop_size=args.crop_size, seed=args.seed,
+        model_save_dir=args.model_save_dir,
+    )
+    os.makedirs(cfg.model_save_dir, exist_ok=True)
+    with open(os.path.join(cfg.model_save_dir, "config.json"), "w") as f:
+        json.dump({"model": dataclasses.asdict(model.cfg),
+                   "train": dataclasses.asdict(cfg)}, f, indent=2)
+    return train(model, cfg, resume=args.resume or None,
+                 log_file=os.path.join(cfg.model_save_dir, "train.log"))
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="focalnet_tpu_torch")
     p.add_argument("--preset", type=str, default="1mlp_g2", choices=["1mlp_g2"])
-    p.add_argument("--mode", type=str, default="serve", choices=["serve"])
-    p.add_argument("--test_model", type=str, required=True,
-                   help="reference-format .pkl ({'model': state_dict, ...})")
+    p.add_argument("--mode", type=str, default="serve", choices=["serve", "train"])
+    p.add_argument("--test_model", type=str, default="",
+                   help="--mode serve: reference-format .pkl ({'model': "
+                        "state_dict, ...})")
     p.add_argument("--result_dir", type=str, default="results/images",
                    help="where answers go when a request names no output path")
     p.add_argument("--pad_factor", type=int, default=32,
@@ -69,6 +103,24 @@ def parse_args(argv=None):
                    help="--tile mode: tiles per forward")
     p.add_argument("--warm_shapes", type=str, default="",
                    help="comma list of HxW sizes forwarded once before READY")
+    # train (the reference's defaults)
+    p.add_argument("--data_dir", type=str, default="dataset/ITS")
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=0.0,
+                   help="accepted and unused, as in the reference, whose Adam "
+                        "takes no weight decay")
+    p.add_argument("--num_epoch", type=int, default=300)
+    p.add_argument("--print_freq", type=int, default=100)
+    p.add_argument("--num_worker", type=int, default=8)
+    p.add_argument("--save_freq", type=int, default=10)
+    p.add_argument("--valid_freq", type=int, default=10)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="micro-batches per optimizer step")
+    p.add_argument("--crop_size", type=int, default=256)
+    p.add_argument("--resume", type=str, default="",
+                   help="rolling checkpoint (model.pkl) to continue from")
+    p.add_argument("--model_save_dir", type=str, default="results/weights")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", type=str, default="",
                    help="'' = the CUDA card (error without one); 'cpu' to run "

@@ -76,19 +76,37 @@ def parse_forward_type(forward_type: str):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; the identity in eval mode."""
+    """Per-sample stochastic depth; the identity in eval mode.
+
+    In training mode the masks come from ``self.generator``, a
+    ``torch.Generator`` on the device of x that :func:`set_drop_path_generator`
+    hands to every DropPath of a model (the JAX module draws from
+    ``make_rng("droppath")``); without one it raises rather than draw from
+    the global RNG."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator = None
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
             return x
+        if self.generator is None:
+            raise RuntimeError("DropPath in training mode needs a generator: "
+                               "call set_drop_path_generator(model, generator)")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_drop_path_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Give every DropPath of ``model`` the one ``generator`` (on the device
+    the model runs on) to draw its masks from."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
 
 
 class Mlp(nn.Module):

@@ -10,8 +10,11 @@
 // The state and every sum are fp32; inputs are fp32 or bf16, y is fp32 or
 // bf16. Operands are plain L-contiguous: u, delta, y, y_accum (batch, dim, L);
 // A (dim, N); B, C (batch, G, N, L); D, bias (dim,). The TPU kernel's chunk
-// interleave, VMEM tile sizing and saved per-chunk states (for its backward)
-// have no counterpart here.
+// interleave and VMEM tile sizing have no counterpart here. For training,
+// the kernel also writes the fp32 state entering each 256-element chunk,
+// hchk (batch, dim, n_chunks, N) (the TPU kernel's hchk_ref): the backward
+// kernel (selective_scan_bwd.cu) rematerialises h from it. A NULL hchk
+// (serving) writes nothing.
 //
 // What bounds it on an H100: the data moves once (u, delta, y, B, C: about
 // 40 MB at L = 16384, dim = 192, N = 16 in fp32, ~12 us at 3.35 TB/s), and
@@ -79,8 +82,8 @@ selective_scan_fwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
                           const float* __restrict__ A, const InT* __restrict__ Bm,
                           const InT* __restrict__ Cm, const float* __restrict__ Dskip,
                           const float* __restrict__ bias, const OutT* __restrict__ yacc,
-                          OutT* __restrict__ y, int dim, int groups, int N, int L,
-                          int softplus, int reverse) {
+                          OutT* __restrict__ y, float* __restrict__ hchk, int dim,
+                          int groups, int N, int L, int softplus, int reverse) {
   __shared__ float s_u[kPad];
   __shared__ float s_dt[kPad];
   __shared__ float s_du[kPad];
@@ -110,10 +113,12 @@ selective_scan_fwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
 
   const int n_chunks = (L + kChunk - 1) / kChunk;
   float carry = 0.f;  // h_n entering the chunk, the same in every lane of warp n
+  float* hchk_row = hchk ? hchk + ((size_t)b * dim + d) * n_chunks * N + n : nullptr;
 
   for (int it = 0; it < n_chunks; ++it) {
     const int c = reverse ? n_chunks - 1 - it : it;
     const int base = c * kChunk;
+    if (hchk_row && lane == 0) hchk_row[(size_t)c * N] = carry;
 
     // A: u, dt, dt*u and the N rows of B and C of the chunk into shared memory
     for (int k = tid; k < N * kChunk; k += nthreads) {
@@ -199,15 +204,15 @@ selective_scan_fwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
 template <typename InT, typename OutT>
 cudaError_t launch(const void* u, const void* delta, const float* A, const void* B,
                    const void* C, const float* Dskip, const float* bias, const void* yacc,
-                   void* y, int batch, int dim, int groups, int N, int L, int softplus,
-                   int reverse, cudaStream_t stream) {
+                   void* y, float* hchk, int batch, int dim, int groups, int N, int L,
+                   int softplus, int reverse, cudaStream_t stream) {
   const dim3 grid(dim, batch);
   const dim3 block(32 * N);
   selective_scan_fwd_kernel<InT, OutT><<<grid, block, 0, stream>>>(
       static_cast<const InT*>(u), static_cast<const InT*>(delta), A,
       static_cast<const InT*>(B), static_cast<const InT*>(C), Dskip, bias,
-      static_cast<const OutT*>(yacc), static_cast<OutT*>(y), dim, groups, N, L, softplus,
-      reverse);
+      static_cast<const OutT*>(yacc), static_cast<OutT*>(y), hchk, dim, groups, N, L,
+      softplus, reverse);
   return cudaGetLastError();
 }
 
@@ -222,12 +227,14 @@ const char* focalnet_cuda_error_string(int code) {
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// Null Dskip / bias / yacc mean: no skip, no bias, nothing to accumulate.
+// Null Dskip / bias / yacc mean: no skip, no bias, nothing to accumulate;
+// a null hchk: no chunk states.
 int focalnet_selective_scan_fwd(const void* u, const void* delta, const void* A,
                                 const void* B, const void* C, const void* Dskip,
-                                const void* bias, const void* yacc, void* y, int batch,
-                                int dim, int groups, int dstate, int L, int softplus,
-                                int reverse, int in_bf16, int out_bf16, void* stream) {
+                                const void* bias, const void* yacc, void* y, void* hchk,
+                                int batch, int dim, int groups, int dstate, int L,
+                                int softplus, int reverse, int in_bf16, int out_bf16,
+                                void* stream) {
   if (batch < 1 || batch > 65535 || dim < 1 || groups < 1 || dim % groups != 0 ||
       dstate < 1 || dstate > kMaxN || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -235,18 +242,19 @@ int focalnet_selective_scan_fwd(const void* u, const void* delta, const void* A,
   const float* Af = static_cast<const float*>(A);
   const float* Df = static_cast<const float*>(Dskip);
   const float* bf = static_cast<const float*>(bias);
+  float* hc = static_cast<float*>(hchk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_bf16) {
-    err = out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(u, delta, Af, B, C, Df, bf, yacc, y,
+    err = out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(u, delta, Af, B, C, Df, bf, yacc, y, hc,
                                                           batch, dim, groups, dstate, L,
                                                           softplus, reverse, s)
-                   : launch<__nv_bfloat16, float>(u, delta, Af, B, C, Df, bf, yacc, y, batch,
+                   : launch<__nv_bfloat16, float>(u, delta, Af, B, C, Df, bf, yacc, y, hc, batch,
                                                   dim, groups, dstate, L, softplus, reverse, s);
   } else {
-    err = out_bf16 ? launch<float, __nv_bfloat16>(u, delta, Af, B, C, Df, bf, yacc, y, batch,
+    err = out_bf16 ? launch<float, __nv_bfloat16>(u, delta, Af, B, C, Df, bf, yacc, y, hc, batch,
                                                   dim, groups, dstate, L, softplus, reverse, s)
-                   : launch<float, float>(u, delta, Af, B, C, Df, bf, yacc, y, batch, dim,
+                   : launch<float, float>(u, delta, Af, B, C, Df, bf, yacc, y, hc, batch, dim,
                                           groups, dstate, L, softplus, reverse, s);
   }
   return static_cast<int>(err);

@@ -34,6 +34,26 @@ def _pair_scan(a, b):
     return a, b
 
 
+def scan_states(a, b, chunk=64):
+    """Every state of the recurrence ``h_i = a_i h_{i-1} + b_i`` (h_{-1} = 0)
+    along the last axis of ``a``, ``b`` (..., L): a pair scan within chunks of
+    ``chunk`` items, the carried state across them."""
+    L = a.shape[-1]
+    pad = (-L) % chunk
+    a = F.pad(a, (0, pad), value=1.0)  # the monoid's identity
+    b = F.pad(b, (0, pad))
+    lead, n_chunks = a.shape[:-1], (L + pad) // chunk
+    a_s, b_s = _pair_scan(a.reshape(*lead, n_chunks, chunk),
+                          b.reshape(*lead, n_chunks, chunk))
+    h = torch.zeros(lead, dtype=b.dtype, device=b.device)
+    prefixes = []
+    for c in range(n_chunks):
+        prefixes.append(h)
+        h = b_s[..., c, -1] + a_s[..., c, -1] * h
+    h_in = torch.stack(prefixes, dim=-1)[..., None]  # (..., n_chunks, 1)
+    return (b_s + a_s * h_in).reshape(*lead, -1)[..., :L]
+
+
 def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
                            delta_softplus=False, out_dtype=torch.float32,
                            chunk=64):
@@ -41,29 +61,11 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
 
     Shapes as in :mod:`focalnet_tpu_torch.ops.scan_ref`."""
     u, delta, A, B, C, D = _prepare(u, delta, A, B, C, D, delta_bias, delta_softplus)
-    batch, dim, L = u.shape
-    N = A.shape[1]
-    pad = (-L) % chunk
-    u_p, delta_p, B_p, C_p = (F.pad(t, (0, pad)) for t in (u, delta, B, C))
-    n_chunks = (L + pad) // chunk
-
-    Bx = _expand_groups(B_p, dim)  # (batch, dim, N, Lp)
-    Cx = _expand_groups(C_p, dim)
-    dA = torch.exp(delta_p[:, :, None, :] * A[None, :, :, None])
-    dBu = delta_p[:, :, None, :] * Bx * u_p[:, :, None, :]
-
-    def to_chunks(x):  # (batch, dim, N, Lp) -> (batch, dim, N, n_chunks, chunk)
-        return x.reshape(batch, dim, N, n_chunks, chunk)
-
-    a_s, b_s = _pair_scan(to_chunks(dA), to_chunks(dBu))
-    h = torch.zeros(batch, dim, N, dtype=torch.float32, device=u.device)
-    prefixes = []
-    for c in range(n_chunks):
-        prefixes.append(h)
-        h = b_s[..., c, -1] + a_s[..., c, -1] * h
-    h_in = torch.stack(prefixes, dim=-1)[..., None]  # (batch, dim, N, n_chunks, 1)
-    hs = b_s + a_s * h_in
-    y = (hs * to_chunks(Cx)).sum(2).reshape(batch, dim, -1)[..., :L]
+    dim = u.shape[1]
+    dA = torch.exp(delta[:, :, None, :] * A[None, :, :, None])  # (batch, dim, N, L)
+    dBu = delta[:, :, None, :] * _expand_groups(B, dim) * u[:, :, None, :]
+    hs = scan_states(dA, dBu, chunk)
+    y = (hs * _expand_groups(C, dim)).sum(2)
     if D is not None:
         y = y + u * D[None, :, None]
     return y.to(out_dtype)

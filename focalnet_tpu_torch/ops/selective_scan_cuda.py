@@ -1,8 +1,13 @@
-"""Wrapper of the Hopper selective-scan forward kernel (``csrc/selective_scan_fwd.cu``).
+"""Wrappers of the Hopper selective-scan kernels (``csrc/selective_scan_fwd.cu``
+and ``csrc/selective_scan_bwd.cu``).
 
-The kernel replaces ``focalnet_tpu/ops/pallas_scan.py::_fwd_kernel``.  It
-takes plain L-contiguous operands; the TPU kernel's chunk interleave has no
-counterpart.  ``selective_scan_cuda.launches`` counts the kernel's launches.
+The forward kernel replaces ``focalnet_tpu/ops/pallas_scan.py::_fwd_kernel``,
+the backward kernel ``::_bwd_kernel``.  They take plain L-contiguous
+operands; the TPU kernels' chunk interleave has no counterpart.
+``selective_scan_cuda.launches`` and ``selective_scan_bwd_cuda.launches``
+count the kernels' launches.  Gradients go through
+:func:`focalnet_tpu_torch.ops.selective_scan`, which pairs the two kernels in
+an autograd Function.
 """
 
 from __future__ import annotations
@@ -13,17 +18,23 @@ import functools
 import torch
 
 from focalnet_tpu_torch.ops._build import load_library
+from focalnet_tpu_torch.ops.scan_bwd_ref import (
+    KERNEL_CHUNK,
+    chunk_states_ref,
+    selective_scan_bwd_ref,
+)
 
 SOURCE = "selective_scan_fwd.cu"
+SOURCE_BWD = "selective_scan_bwd.cu"
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.cache
 def build() -> ctypes.CDLL:
-    """Build (at first use) and bind the kernel's library."""
+    """Build (at first use) and bind the forward kernel's library."""
     lib = load_library(SOURCE)
     fn = lib.focalnet_selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.focalnet_selective_scan_max_dstate.argtypes = []
     lib.focalnet_selective_scan_max_dstate.restype = ctypes.c_int
@@ -32,38 +43,32 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def build_bwd() -> ctypes.CDLL:
+    """Build (at first use) and bind the backward kernel's library."""
+    lib = load_library(SOURCE_BWD)
+    fn = lib.focalnet_selective_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.focalnet_selective_scan_bwd_max_dstate.argtypes = []
+    lib.focalnet_selective_scan_bwd_max_dstate.restype = ctypes.c_int
+    lib.focalnet_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.focalnet_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _check(cond, msg):
     if not cond:
         raise ValueError(f"selective_scan_cuda: {msg}")
 
 
-def selective_scan_cuda(u, delta, A, B, C, D=None, delta_bias=None,
-                        delta_softplus=False, reverse=False, y_accum=None,
-                        out_dtype=torch.float32):
-    """Selective scan forward: u, delta (batch, dim, L); A (dim, N) fp32;
-    B, C (batch, G, N, L) with dim % G == 0; D, delta_bias (dim,) fp32 or
-    None; ``y_accum`` (y's shape and ``out_dtype``) is added in fp32 before
-    the cast.  ``reverse`` scans right to left.  Inputs fp32 or bf16, output
-    fp32 or bf16; any L.
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
-    A CUDA tensor launches the kernel on the current stream (no
-    synchronisation); a CPU tensor takes the plain chunked scan."""
-    if u.device.type == "cpu":
-        from focalnet_tpu_torch.ops.selective_scan import selective_scan
 
-        return selective_scan(
-            u, delta, A, B, C, D=D, delta_bias=delta_bias,
-            delta_softplus=delta_softplus, out_dtype=out_dtype,
-            backend="chunked", reverse=reverse, y_accum=y_accum,
-        )
-    tensors = (u, delta, A, B, C, D, delta_bias, y_accum)
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise RuntimeError(
-            "selective_scan_cuda has no backward kernel yet (the training "
-            "slice, ROADMAP.md); run under torch.no_grad()/inference_mode()"
-        )
+def _check_operands(u, delta, A, B, C, D, delta_bias, max_dstate):
+    """Shape, dtype, device and layout checks shared by both kernels;
+    returns (batch, dim, G, N, L)."""
     _check(u.device.type == "cuda", f"tensors must be on a CUDA device, got {u.device}")
     _check(u.dim() == 3 and delta.shape == u.shape, "u and delta must both be (batch, dim, L)")
     batch, dim, L = u.shape
@@ -72,27 +77,66 @@ def selective_scan_cuda(u, delta, A, B, C, D=None, delta_bias=None,
     _check(B.shape[0] == batch and B.shape[3] == L and dim % G == 0,
            f"B/C {tuple(B.shape)} do not match u {tuple(u.shape)}")
     _check(A.shape == (dim, N), f"A must be (dim, N) = {(dim, N)}, got {tuple(A.shape)}")
-    _check(N <= build().focalnet_selective_scan_max_dstate(),
-           f"N = {N} states exceed the kernel's limit")
+    _check(N <= max_dstate, f"N = {N} states exceed the kernel's limit")
     _check(u.dtype in _DTYPES and delta.dtype == B.dtype == C.dtype == u.dtype,
            "u, delta, B, C must share one dtype, float32 or bfloat16")
-    _check(out_dtype in _DTYPES, f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     _check(A.dtype == torch.float32, "A must be float32")
     for name, t in (("D", D), ("delta_bias", delta_bias)):
         _check(t is None or (t.shape == (dim,) and t.dtype == torch.float32),
                f"{name} must be a float32 (dim,) vector or None")
-    _check(y_accum is None or (y_accum.shape == u.shape and y_accum.dtype == out_dtype),
-           "y_accum must have y's shape and out_dtype")
-    for t in tensors:
+    for t in (u, delta, A, B, C, D, delta_bias):
         _check(t is None or (t.device == u.device and t.is_contiguous()),
                "every tensor must be contiguous and on u's device")
+    return batch, dim, G, N, L
+
+
+def selective_scan_cuda(u, delta, A, B, C, D=None, delta_bias=None,
+                        delta_softplus=False, reverse=False, y_accum=None,
+                        out_dtype=torch.float32, chunk_states=False):
+    """Selective scan forward: u, delta (batch, dim, L); A (dim, N) fp32;
+    B, C (batch, G, N, L) with dim % G == 0; D, delta_bias (dim,) fp32 or
+    None; ``y_accum`` (y's shape and ``out_dtype``) is added in fp32 before
+    the cast.  ``reverse`` scans right to left.  Inputs fp32 or bf16, output
+    fp32 or bf16; any L.  ``chunk_states=True`` also returns the fp32 state
+    entering each 256-item chunk, (batch, dim, n_chunks, N), which the
+    backward kernel takes.
+
+    A CUDA tensor launches the kernel on the current stream (no
+    synchronisation); where an input needs a gradient, the call goes through
+    the autograd Function of :func:`..selective_scan.selective_scan`.  A CPU
+    tensor takes the plain chunked scan."""
+    from focalnet_tpu_torch.ops.selective_scan import selective_scan
+
+    kw = dict(D=D, delta_bias=delta_bias, delta_softplus=delta_softplus,
+              out_dtype=out_dtype, reverse=reverse, y_accum=y_accum)
+    if u.device.type == "cpu":
+        y = selective_scan(u, delta, A, B, C, backend="chunked", **kw)
+        if chunk_states:
+            return y, chunk_states_ref(u, delta, A, B, delta_bias, delta_softplus, reverse)
+        return y
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (u, delta, A, B, C, D, delta_bias, y_accum)
+    ):
+        _check(not chunk_states, "chunk_states is for the backward kernel's "
+               "caller, which runs without autograd")
+        return selective_scan(u, delta, A, B, C, backend="cuda", **kw)
+    batch, dim, G, N, L = _check_operands(
+        u, delta, A, B, C, D, delta_bias, build().focalnet_selective_scan_max_dstate())
+    _check(out_dtype in _DTYPES, f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _check(y_accum is None or (y_accum.shape == u.shape and y_accum.dtype == out_dtype
+                               and y_accum.device == u.device and y_accum.is_contiguous()),
+           "y_accum must be contiguous, on u's device, with y's shape and out_dtype")
 
     y = torch.empty(u.shape, dtype=out_dtype, device=u.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    hchk = None
+    if chunk_states:
+        n_chunks = -(-L // KERNEL_CHUNK)
+        hchk = torch.empty(batch, dim, n_chunks, N, dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         rc = build().focalnet_selective_scan_fwd(
-            ptr(u), ptr(delta), ptr(A), ptr(B), ptr(C), ptr(D), ptr(delta_bias),
-            ptr(y_accum), ptr(y), batch, dim, G, N, L, int(delta_softplus),
+            _ptr(u), _ptr(delta), _ptr(A), _ptr(B), _ptr(C), _ptr(D), _ptr(delta_bias),
+            _ptr(y_accum), _ptr(y), _ptr(hchk), batch, dim, G, N, L, int(delta_softplus),
             int(reverse), int(u.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16),
             torch.cuda.current_stream(u.device).cuda_stream,
@@ -101,7 +145,61 @@ def selective_scan_cuda(u, delta, A, B, C, D=None, delta_bias=None,
         msg = build().focalnet_cuda_error_string(rc).decode()
         raise RuntimeError(f"selective_scan_fwd launch failed: {msg} ({rc})")
     selective_scan_cuda.launches += 1
-    return y
+    return (y, hchk) if chunk_states else y
 
 
 selective_scan_cuda.launches = 0
+
+
+def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, dy, hchk,
+                            delta_softplus=False, reverse=False):
+    """Selective scan backward: the gradients of ``sum(y * dy)`` with respect
+    to (u, delta, A, B, C, D, delta_bias), for the operands of
+    :func:`selective_scan_cuda` and the chunk states it returned with
+    ``chunk_states=True``.  du and ddelta come back in the input dtype, dA,
+    dB, dC, dD and dbias in fp32 (dD / dbias None when D / delta_bias are).
+    dy (batch, dim, L) may be fp32 or bf16; the kernel reads it in fp32.
+
+    A CUDA tensor launches the kernel on the current stream (no
+    synchronisation); a CPU tensor takes the plain adjoint
+    (:func:`.scan_bwd_ref.selective_scan_bwd_ref`), which needs no chunk
+    states."""
+    if u.device.type == "cpu":
+        return selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, dy,
+                                      delta_softplus, reverse)
+    batch, dim, G, N, L = _check_operands(
+        u, delta, A, B, C, D, delta_bias,
+        build_bwd().focalnet_selective_scan_bwd_max_dstate())
+    _check(dy.shape == u.shape and dy.dtype in _DTYPES and dy.device == u.device,
+           "dy must have y's shape, a float32 or bfloat16 dtype and u's device")
+    n_chunks = -(-L // KERNEL_CHUNK)
+    _check(hchk is not None and hchk.shape == (batch, dim, n_chunks, N)
+           and hchk.dtype == torch.float32 and hchk.device == u.device
+           and hchk.is_contiguous(),
+           f"hchk must be the forward's fp32 chunk states {(batch, dim, n_chunks, N)}")
+    dy = dy.float().contiguous()
+
+    du = torch.empty_like(u)
+    ddelta = torch.empty_like(delta)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    dA = torch.zeros(dim, N, **f32)
+    dB = torch.zeros(batch, G, N, L, **f32)
+    dC = torch.zeros(batch, G, N, L, **f32)
+    dD = None if D is None else torch.zeros(dim, **f32)
+    dbias = None if delta_bias is None else torch.zeros(dim, **f32)
+    with torch.cuda.device(u.device):
+        rc = build_bwd().focalnet_selective_scan_bwd(
+            _ptr(u), _ptr(delta), _ptr(A), _ptr(B), _ptr(C), _ptr(D), _ptr(delta_bias),
+            _ptr(hchk), _ptr(dy), _ptr(du), _ptr(ddelta), _ptr(dA), _ptr(dB), _ptr(dC),
+            _ptr(dD), _ptr(dbias), batch, dim, G, N, L, int(delta_softplus),
+            int(reverse), int(u.dtype == torch.bfloat16),
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = build_bwd().focalnet_scan_bwd_error_string(rc).decode()
+        raise RuntimeError(f"selective_scan_bwd launch failed: {msg} ({rc})")
+    selective_scan_bwd_cuda.launches += 1
+    return du, ddelta, dA, dB, dC, dD, dbias
+
+
+selective_scan_bwd_cuda.launches = 0

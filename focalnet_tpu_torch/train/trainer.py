@@ -1,0 +1,186 @@
+"""Training loop (counterpart of ``focalnet_tpu/train/trainer.py``), one card.
+
+The reference recipe: multiscale L1 + 0.1 FFT loss, ``clip_grad_norm_(0.001)``
+before every step of Adam (lr 1e-4, betas 0.9/0.999, eps 1e-8, no weight
+decay), the per-epoch warm-up + cosine learning rate, rolling / periodic /
+best / final checkpoints, batch-1 validation at epoch 1 and every
+``valid_freq`` epochs, and stdout lines in the reference's log-scraper
+formats (``Time: ... Epoch: ... Iter: ...``, ``EPOCH: ...``, ``Average PSNR``).
+
+The model trains in ``train()`` mode: DropPath draws from one generator on
+the card, seeded from ``seed`` and the step index at every step, so a
+resumed run draws the masks the uninterrupted one would have (the JAX loop
+folds the step index into its key).  Loss values stay on the device until a
+print boundary, so the host does not wait for the card every step.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from focalnet_tpu_torch.configs import TrainConfig
+from focalnet_tpu_torch.data.reside import TrainLoader
+from focalnet_tpu_torch.evaluation.evaluator import validate
+from focalnet_tpu_torch.models.ss2d import set_drop_path_generator
+from focalnet_tpu_torch.train.checkpoint import CheckpointManager, restore
+from focalnet_tpu_torch.train.losses import multiscale_loss
+from focalnet_tpu_torch.train.schedule import warmup_cosine_epoch_lr
+from focalnet_tpu_torch.utils.meters import Adder, Timer
+
+
+def make_optimizer(model, learning_rate: float = 1e-4) -> torch.optim.Adam:
+    return torch.optim.Adam(model.parameters(), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+
+def set_lr(optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+def optimizer_step(model, optimizer, grad_clip: float = 0.001) -> None:
+    """Clip the gradients' global norm to ``grad_clip``, then step."""
+    torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
+    optimizer.step()
+
+
+def make_train_step(model, optimizer, fft_weight: float = 0.1,
+                    grad_clip: float = 0.001, grad_accum: int = 1):
+    """One step: loss, gradients, clip, Adam.  ``grad_accum > 1`` splits the
+    batch into that many equal micro-batches and averages their gradients
+    before the one update (the loss is a per-sample mean, so this is the
+    full-batch gradient up to rounding).  Returns the loss, content and fft
+    means as 0-d tensors on the device."""
+
+    def train_step(hazy, gt):
+        if hazy.shape[0] % grad_accum:
+            raise ValueError(f"batch size {hazy.shape[0]} not divisible by "
+                             f"grad_accum {grad_accum}")
+        optimizer.zero_grad(set_to_none=True)
+        sums = torch.zeros(3, device=hazy.device)
+        for h, g in zip(hazy.chunk(grad_accum), gt.chunk(grad_accum)):
+            total, content, fft = multiscale_loss(model(h), g, fft_weight)
+            (total / grad_accum).backward()
+            sums += torch.stack([total, content, fft]).detach()
+        optimizer_step(model, optimizer, grad_clip)
+        loss, content, fft = sums / grad_accum
+        return {"loss": loss, "content": content, "fft": fft}
+
+    return train_step
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The DropPath generator's seed at global step ``step``."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
+def train(model, cfg: TrainConfig, resume: Optional[str] = None,
+          log_file: Optional[str] = None):
+    """Train ``model`` (a MIMOUNet on its device) by ``cfg``; ``resume`` is a
+    rolling ``model.pkl`` to continue from.  Returns (model, optimizer)."""
+    device = next(model.parameters()).device
+    optimizer = make_optimizer(model, cfg.learning_rate)
+    ckpt = CheckpointManager(cfg.model_save_dir)
+    start_epoch = 1
+    if resume:
+        epoch = restore(resume, model, optimizer)
+        print("Resume from %d" % epoch)
+        start_epoch = epoch + 1
+
+    loader = TrainLoader(cfg.data_dir, cfg.batch_size, cfg.num_worker,
+                         crop=cfg.crop_size, seed=cfg.seed)
+    max_iter = len(loader)
+    generator = torch.Generator(device=device)
+    set_drop_path_generator(model, generator)
+    model.train()
+    train_step = make_train_step(model, optimizer, cfg.fft_loss_weight,
+                                 cfg.grad_clip, cfg.grad_accum)
+
+    logf = open(log_file, "a") if log_file else None
+    metricsf = (open(os.path.splitext(log_file)[0] + ".metrics.jsonl", "a")
+                if log_file else None)
+
+    def log(msg):
+        print(msg, flush=True)
+        if logf:
+            logf.write(msg + "\n")
+            logf.flush()
+
+    def log_metric(**kv):
+        if metricsf:
+            metricsf.write(json.dumps(kv) + "\n")
+            metricsf.flush()
+
+    epoch_pixel, epoch_fft = Adder(), Adder()
+    iter_pixel, iter_fft = Adder(), Adder()
+    epoch_timer, iter_timer = Timer("m"), Timer("m")
+    best_psnr = -1.0
+    try:
+        for epoch_idx in range(start_epoch, cfg.num_epoch + 1):
+            lr = float(warmup_cosine_epoch_lr(epoch_idx, cfg.learning_rate, cfg.num_epoch,
+                                              cfg.warmup_epochs, cfg.lr_min))
+            set_lr(optimizer, lr)
+            epoch_timer.tic()
+            iter_timer.tic()
+            pending = []
+
+            def drain():
+                if not pending:
+                    return
+                # one device->host copy for every step since the last one
+                for content, fft in torch.stack(
+                        [torch.stack([m["content"], m["fft"]]) for m in pending]).tolist():
+                    iter_pixel(content)
+                    iter_fft(fft)
+                    epoch_pixel(content)
+                    epoch_fft(fft)
+                pending.clear()
+
+            for iter_idx, (hazy, gt) in enumerate(loader.epoch()):
+                generator.manual_seed(step_seed(cfg.seed, epoch_idx * max_iter + iter_idx))
+                pending.append(train_step(torch.from_numpy(hazy).to(device),
+                                          torch.from_numpy(gt).to(device)))
+                if (iter_idx + 1) % cfg.print_freq == 0:
+                    drain()
+                    log("Time: %7.4f Epoch: %03d Iter: %4d/%4d LR: %.10f "
+                        "Loss content: %7.4f Loss fft: %7.4f" % (
+                            iter_timer.toc(), epoch_idx, iter_idx + 1, max_iter,
+                            lr, iter_pixel.average(), iter_fft.average()))
+                    log_metric(step=(epoch_idx - 1) * max_iter + iter_idx,
+                               pixel_loss=iter_pixel.average(),
+                               fft_loss=iter_fft.average(), lr=lr)
+                    iter_timer.tic()
+                    iter_pixel.reset()
+                    iter_fft.reset()
+
+            drain()
+            ckpt.save_rolling(model, optimizer, epoch_idx)
+            if epoch_idx % cfg.save_freq == 0:
+                ckpt.save_snapshot(model, epoch_idx)
+            log("EPOCH: %02d\nElapsed time: %4.2f Epoch Pixel Loss: %7.4f "
+                "Epoch FFT Loss: %7.4f" % (
+                    epoch_idx, epoch_timer.toc(),
+                    epoch_pixel.average(), epoch_fft.average()))
+            epoch_pixel.reset()
+            epoch_fft.reset()
+
+            if epoch_idx % cfg.valid_freq == 0 or epoch_idx == 1:
+                val = validate(model, cfg.data_dir)
+                log("%03d epoch \n Average PSNR %.2f dB" % (epoch_idx, val))
+                log_metric(epoch=epoch_idx, psnr=val)
+                if val >= best_psnr:
+                    best_psnr = val
+                    ckpt.save_best(model, epoch_idx)
+
+        ckpt.save_final(model, cfg.num_epoch)
+    finally:
+        if logf:
+            logf.close()
+        if metricsf:
+            metricsf.close()
+    return model, optimizer

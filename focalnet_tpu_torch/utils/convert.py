@@ -18,6 +18,7 @@ rules, since the port imports nothing of ``focalnet_tpu``:
 
 from __future__ import annotations
 
+import os
 import re
 from collections.abc import Mapping
 from typing import Dict, List, Tuple
@@ -122,14 +123,34 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def save_checkpoint(path: str, state_dict, epoch: int = 0) -> None:
-    """Write a reference-format ``.pkl``: ``{'model': state_dict, 'epoch': epoch}``."""
-    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-    torch.save({"model": sd, "epoch": epoch}, path)
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+def save_checkpoint(path: str, state_dict, epoch: int = 0, optimizer=None) -> None:
+    """Write a reference-format ``.pkl``: ``{'model': state_dict, 'epoch':
+    epoch}``, plus ``'optimizer'`` (an optimizer's state dict) when given.
+    Tensors are stored on the CPU; the file is written whole or not at all
+    (a temporary file renamed over ``path``)."""
+    obj = {"model": _to_cpu(state_dict), "epoch": epoch}
+    if optimizer is not None:
+        obj["optimizer"] = _to_cpu(optimizer)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, full: bool = False):
     """Read a reference ``.pkl`` (``{'model': sd, ...}`` or a bare state
-    dict) onto the CPU.  Only tensors and plain containers are unpickled."""
+    dict) onto the CPU: the state dict, or with ``full=True`` the whole
+    object.  Only tensors and plain containers are unpickled."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
+    if full:
+        return obj
     return obj["model"] if "model" in obj else obj

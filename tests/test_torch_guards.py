@@ -1,6 +1,6 @@
 """Guards of the port: no JAX inside it, no silent CPU fallback, and the CUDA
-kernel's contract (the kernel itself runs only on the card: that test skips
-on a machine without one)."""
+kernels' contract (the kernels run only on the card: those tests skip on a
+machine without one)."""
 
 import io
 import os
@@ -16,7 +16,11 @@ from focalnet_tpu_torch.evaluation import serve
 from focalnet_tpu_torch.main import main
 from focalnet_tpu_torch.models import build_net
 from focalnet_tpu_torch.ops import selective_scan
-from focalnet_tpu_torch.ops.selective_scan_cuda import selective_scan_cuda
+from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
+from focalnet_tpu_torch.ops.selective_scan_cuda import (
+    selective_scan_bwd_cuda,
+    selective_scan_cuda,
+)
 
 torch.set_num_threads(1)
 
@@ -33,7 +37,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'focalnet_tpu'))\n"
-        "assert 'focalnet_tpu_torch.main' in sys.modules\n"
+        "for m in ('main', 'train.trainer', 'train.checkpoint', 'data.reside',\n"
+        "          'evaluation.evaluator', 'ops.scan_bwd_ref'):\n"
+        "    assert 'focalnet_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -52,6 +58,8 @@ def test_no_device_raises_without_cuda(monkeypatch, tmp_path):
         serve(model, str(tmp_path), inp=io.StringIO(""), out=io.StringIO())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--mode", "serve", "--test_model", "unused.pkl"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--mode", "train", "--data_dir", str(tmp_path)])
 
 
 def _scan_inputs(device, L=300, dim=8, N=4, G=2):
@@ -100,3 +108,58 @@ def test_kernel_matches_plain_on_card(reverse, out_dtype):
     assert selective_scan_cuda.launches == before + 1
     tol = dict(rtol=6e-4, atol=2e-3) if out_dtype == torch.float32 else dict(rtol=3e-2, atol=5e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_kernel_matches_plain_on_card(reverse, in_dtype):
+    """The kernel pair through autograd (K1 with chunk states, then K2)
+    against the plain adjoint, with y_accum; one launch of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x, dy = _scan_inputs("cuda", L=1000, dim=16, N=16, G=1)
+    for k in ("u", "delta", "B", "C"):
+        x[k] = x[k].to(in_dtype)
+    leaves = {k: v.clone().requires_grad_() for k, v in x.items()}
+    yacc = torch.randn_like(dy).requires_grad_()
+    before = (selective_scan_cuda.launches, selective_scan_bwd_cuda.launches)
+    y = selective_scan(**leaves, delta_softplus=True, backend="cuda",
+                       reverse=reverse, y_accum=yacc)
+    got = torch.autograd.grad(y, [*leaves.values(), yacc], dy)
+    torch.cuda.synchronize()
+    assert (selective_scan_cuda.launches, selective_scan_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = selective_scan_bwd_ref(*x.values(), dy, True, reverse)
+    assert torch.equal(got[7], dy)
+    for g, w in zip(got[:7], want):
+        assert g.dtype == w.dtype or g.dtype == in_dtype
+        scale = max(w.float().abs().max().item(), 1.0)
+        tol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_plain():
+    """One tiny train step's gradients on the kernels against the plain
+    scans, with 48 launches of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from focalnet_tpu_torch.train.losses import multiscale_loss
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(2, 32, 32, 3, generator=g).cuda()
+    gt = torch.rand(2, 32, 32, 3, generator=g).cuda()
+    grads = []
+    for backend in ("cuda", "chunked"):
+        model = build_net("1mlp_g2", device="cuda", drop_path_rate=0.0,
+                          scan_backend=backend, **TINY).train()
+        before = (selective_scan_cuda.launches, selective_scan_bwd_cuda.launches)
+        multiscale_loss(model(x), gt)[0].backward()
+        torch.cuda.synchronize()
+        launched = (selective_scan_cuda.launches - before[0],
+                    selective_scan_bwd_cuda.launches - before[1])
+        assert launched == ((48, 48) if backend == "cuda" else (0, 0))
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+    for k, w in grads[1].items():
+        assert (grads[0][k] - w).abs().max().item() <= 1e-3 * w.abs().max().item() + 1e-5, k
