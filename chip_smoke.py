@@ -6,8 +6,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds every kernel of the port's main paths from the checkout's sources
-(the selective-scan forward and backward, one nvcc each, in parallel),
-holds each against its plain PyTorch version at the main paths' shapes,
+(the selective-scan forward and backward and the FMA-pass probe, one nvcc
+each, in parallel), holds each against its plain PyTorch version at the main
+paths' shapes, runs the fp32 FMA-rate probe
+(``python -m focalnet_tpu_torch.benchmarks.vpu_probe``) with launch counts,
 serves the full-width ``1mlp_g2`` dehazer through the CLI's ``--mode serve``
 (whole-image and ``--tile``) with kernel launch counts, compares the whole
 forward and the whole gradient on the kernels with the plain scans, times
@@ -26,7 +28,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -52,6 +53,17 @@ GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias", "dy_accum")
 PATH_LS = (16384, 4096, 1024)  # scan lengths of a 256x256 forward
 LAUNCHES_PER_FORWARD = 48      # 12 SS2D x 4 directions
 TRAIN_BATCH = 4
+# the FMA-pass probe: its check shape, its (and the JAX probe's) shape, and
+# the n_loop values; P = 8 n_loop passes.  At the check shape, one FMA per
+# pass in the kernel against a rounded product and sum in the fp32 plain
+# version: rtol 1e-4 at P <= 512; at the probe's shape, against the float64
+# plain version with rtol probe_rtol(P)
+PROBE_CHECK_SHAPE = (1, 1, 192, 4096)
+PROBE_SHAPE = dict(B=4, D=192, L=16384, N=16)
+PROBE_CHECK_LOOPS = (1, 8, 64)
+PROBE_PATH_LOOPS = (8, 64, 512)  # the CLI's pair and chip_smoke's (64, 512)
+PROBE_RTOL = 1e-4
+FMA_LANES_PER_SM = 128
 
 
 def emit(**fields):
@@ -63,18 +75,10 @@ def fail(msg):
     sys.exit(1)
 
 
-def smi(query, fmt="csv,noheader"):
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        fail(f"nvidia-smi --query-gpu={query}: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, reps=20, warmup=3):
-    """Median device time of ``fn`` in ms (CUDA events around each run)."""
+    """Median time of one call of ``fn`` in ms on the device's stream: CUDA
+    events around each call (the host's issue time included).  Used for the
+    plain versions and the whole model."""
     for _ in range(warmup):
         fn()
     times = []
@@ -87,6 +91,16 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, pattern):
+    """A kernel's own device time per call of ``fn`` in ms: the profiled
+    device events whose name holds ``pattern``, as the probe measures them
+    (:func:`focalnet_tpu_torch.benchmarks.vpu_probe.device_ms`).  Every
+    kernel's ``ms`` is taken this way."""
+    from focalnet_tpu_torch.benchmarks.vpu_probe import device_ms
+
+    return device_ms(fn, pattern, torch.device("cuda"))
 
 
 def max_err(got, want, rtol, atol):
@@ -201,7 +215,7 @@ def phase_kernel(scan, clock_mhz, sms):
             for rev, acc in ((False, False), (True, True)):
                 kw = dict(delta_softplus=True, reverse=rev,
                           y_accum=yacc if acc else None)
-                ms = time_ms(lambda: scan(**x, backend="cuda", **kw))
+                ms = kernel_ms(lambda: scan(**x, backend="cuda", **kw), "selective_scan_fwd")
                 plain = time_ms(lambda: scan(**x, backend="chunked", **kw))
                 b, by = bound(L, accum=acc)
                 sfu = 192 * 16 * L / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6) * 1e3
@@ -252,7 +266,7 @@ def phase_kernel_bwd(scan, fwd, bwd, bwd_ref, clock_mhz, sms):
             for rev in (False, True):
                 _, hchk = fwd(**x, delta_softplus=True, reverse=rev, chunk_states=True)
                 args = (*x.values(), dy)
-                ms = time_ms(lambda: bwd(*args, hchk, True, rev))
+                ms = kernel_ms(lambda: bwd(*args, hchk, True, rev), "selective_scan_bwd")
                 plain = time_ms(lambda: bwd_ref(*args, True, rev), reps=5, warmup=1)
                 b, by = bound_bwd(L, clock_mhz, sms)
                 emit(phase="kernel_bwd_time", L=L, reverse=rev, ms=ms, plain_ms=plain,
@@ -262,44 +276,128 @@ def phase_kernel_bwd(scan, fwd, bwd, bwd_ref, clock_mhz, sms):
 
 
 def phase_profile(name, fn, reps):
-    """Where the device time of ``reps`` calls of ``fn`` goes: torch.profiler
-    over them, kernel time by category and name, and the device's idle share
-    between the first kernel's start and the last one's end."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where the device time of ``reps`` calls of ``fn`` goes
+    (:func:`focalnet_tpu_torch.utils.profiling.device_profile`)."""
+    from focalnet_tpu_torch.utils.profiling import device_profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]  # e.g. Adam.step's range
-    if not kernels:
+    r = device_profile(fn, reps)
+    if r is None:
         emit(phase=name, note="torch.profiler recorded no device events")
-        return
-    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
-    by_name, by_kind = {}, {}
-    for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        low = e.name.lower()
-        kind = ("scan_bwd" if "selective_scan_bwd" in low else
-                "scan_fwd" if "selective_scan" in low else
-                "conv" if "conv" in low or "cudnn" in low or "implicit" in low else
-                "matmul" if "gemm" in low or "xmma" in low or "cutlass" in low else
-                "fft" if "fft" in low else
-                "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + us
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us)
-    busy = sum(by_kind.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    emit(phase=name, calls=reps, kernels_per_call=len(kernels) / reps,
-         device_ms_per_call=busy / reps / 1e3, span_ms_per_call=span / reps / 1e3,
-         idle_share=1.0 - busy / span,
-         ms_per_call_by_kind={k: v / reps / 1e3 for k, v in sorted(by_kind.items())},
-         top=[dict(name=k[:80], launches=n // reps, ms_per_call=t / reps / 1e3)
-              for k, (n, t) in top])
+    else:
+        emit(phase=name, **r)
+
+
+def probe_bound(P, E):
+    """Least time (ms) of P FMA passes over E fp32 elements: 8 E bytes moved
+    once at the memory rate vs 2 P E fp32 operations at the fp32 rate."""
+    t_bytes = 8 * E / PEAK_BYTES_PER_S
+    t_ops = 2 * P * E / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def probe_rtol(P):
+    """K3's relative error bound against the exact function (the float64
+    plain version) at P <= 4096 passes: one fp32 rounding (2^-24) per pass
+    of an acc that grows about as x (k + 1), so at most 2^-24 (P/2 + 1),
+    times 1.1 for the multipliers' growth (c^(2P) <= 1.07).  One pass missing
+    moves the result by about 1/P, one multiplier off by one index by about
+    1e-6 P/16: both above it."""
+    assert P <= 4096, P
+    return 1.1 * 2.0 ** -24 * (P / 2 + 1)
+
+
+def phase_kernel_probe(fma_cuda, fma_ref):
+    """K3 against its fp32 plain version at the check shape, P = 8, 64, 512;
+    then on the probe's own input (``vpu_probe.probe_input``, the shape the
+    probe path gives it) against the float64 plain version at P = 64, 512,
+    4096, and its profiled time there beside the fp32 plain version's and
+    the bound."""
+    from focalnet_tpu_torch.benchmarks.vpu_probe import probe_input
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(*PROBE_CHECK_SHAPE, generator=g, device="cuda")
+    for n_loop in PROBE_CHECK_LOOPS:
+        got = fma_cuda(x, n_loop)
+        want = fma_ref(x, n_loop)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, PROBE_RTOL, 0.0)
+        emit(phase="kernel_probe", shape=list(PROBE_CHECK_SHAPE), passes=8 * n_loop,
+             max_abs_err=err, max_abs=float(want.abs().max()), rtol=PROBE_RTOL, ok=ok)
+        if not ok:
+            fail(f"fma_passes disagrees with its plain version at P={8 * n_loop}: "
+                 f"max abs err {err}")
+    b, d, l = PROBE_SHAPE["B"], PROBE_SHAPE["D"], PROBE_SHAPE["L"]
+    x = probe_input(b, d, l, torch.device("cuda"))
+    x64 = x.double()
+    worst, timing = 0.0, {}
+    for n_loop in PROBE_PATH_LOOPS:
+        P = 8 * n_loop
+        got = fma_cuda(x, n_loop)
+        want = fma_ref(x64, n_loop)
+        rtol = probe_rtol(P)
+        diff = (got.double() - want).abs()  # in float64: want is not rounded
+        ok = bool(torch.isfinite(got).all()) and bool((diff <= rtol * want.abs()).all())
+        err = float(diff.max())
+        rel = float((diff / want.abs().clamp_min(1e-30)).max())
+        emit(phase="kernel_probe_path", shape=[b, 1, d, l], passes=P, max_abs_err=err,
+             max_rel_err=rel, max_abs=float(want.abs().max()), rtol=rtol, ok=ok)
+        if not ok:
+            fail(f"fma_passes disagrees with its float64 plain version on the probe's "
+                 f"input at P={P}: max rel err {rel} > {rtol}")
+        worst = max(worst, err)
+        del got, want, diff
+        ms = kernel_ms(lambda: fma_cuda(x, n_loop), "fma_passes")
+        plain = time_ms(lambda: fma_ref(x, n_loop), reps=3, warmup=1)
+        bnd, by = probe_bound(P, x.numel())
+        emit(phase="kernel_probe_time", shape=[b, 1, d, l], passes=P, ms=ms, plain_ms=plain,
+             bound_ms=bnd, bound_by=by, tflops=2 * P * x.numel() / (ms * 1e-3) / 1e12)
+        timing[P] = (ms, plain, bnd, by)
+    return worst, timing
+
+
+def phase_vpu_probe(counters, fma_cuda, bwd, fwd, peak_tflops):
+    """The probe through its CLI (the JAX pair of n_loop) and its function
+    at n_loop (64, 512), with K1 and K3 launch counts over both; then K2's
+    pass-equivalents at the probe's shape.  Fails unless both measured
+    rates are positive and the (64, 512) one is at most 5% above the SMs'
+    FMA peak (a folded chain would show far above it); the JAX pair's P = 64
+    point is bytes-bound, which overstates its rate by a few percent."""
+    from focalnet_tpu_torch.benchmarks import vpu_probe
+
+    for c in counters:
+        c.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jax_pair = vpu_probe.main([])
+    lines = buf.getvalue().splitlines()
+    with contextlib.redirect_stdout(io.StringIO()):
+        wide = vpu_probe.run_probe(**PROBE_SHAPE, loops=PROBE_PATH_LOOPS[1:])
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    if not launches[fma_cuda.__name__] or not launches["selective_scan_cuda"]:
+        fail(f"the probe did not launch K3 and K1: {launches}")
+
+    # K2 at the probe's shape, softplus, no D, no bias, in the same harness
+    b, d, l, n = (PROBE_SHAPE[k] for k in ("B", "D", "L", "N"))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    r = lambda *s: torch.rand(*s, generator=g, device="cuda")
+    u, dl, A, Bm, Cm = r(b, d, l), 0.1 * r(b, d, l), -torch.exp(r(d, n)), r(b, 1, n, l), r(b, 1, n, l)
+    dy = r(b, d, l)
+    with torch.inference_mode():
+        _, hchk = fwd(u, dl, A, Bm, Cm, delta_softplus=True, chunk_states=True)
+        t_bwd = vpu_probe.device_ms(
+            lambda: bwd(u, dl, A, Bm, Cm, None, None, dy, hchk, True, False),
+            "selective_scan_bwd", torch.device("cuda"))
+    per_pass = (wide["probe_ms"][1] - wide["probe_ms"][0]) / (wide["passes"][1] - wide["passes"][0])
+    emit(phase="vpu_probe", lines=lines, jax_pair=jax_pair, wide=wide,
+         scan_bwd_device_ms=t_bwd, scan_bwd_pass_equivalents=t_bwd / per_pass,
+         peak_fma_tflops=peak_tflops, launches=launches)
+    if not jax_pair["probe_fma_tflops"] > 0:
+        fail(f"probe, JAX pair: {jax_pair['probe_fma_tflops']} TFLOP/s")
+    if not 0 < wide["probe_fma_tflops"] <= 1.05 * peak_tflops:
+        fail(f"probe (64, 512): {wide['probe_fma_tflops']} TFLOP/s is not in "
+             f"(0, 1.05 x {peak_tflops}]")
+    return launches, jax_pair, wide
 
 
 def phase_grad(build_net, counters, card):
@@ -445,6 +543,9 @@ def main():
     from focalnet_tpu_torch.main import main as cli_main
     from focalnet_tpu_torch.models import build_net
     from focalnet_tpu_torch.ops import _build
+    from focalnet_tpu_torch.ops.fma_passes import SOURCE as SOURCE_FMA
+    from focalnet_tpu_torch.ops.fma_passes import build as build_fma
+    from focalnet_tpu_torch.ops.fma_passes import fma_passes_cuda, fma_passes_ref
     from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
     from focalnet_tpu_torch.ops.selective_scan import selective_scan
     from focalnet_tpu_torch.ops.selective_scan_cuda import (
@@ -456,6 +557,7 @@ def main():
         selective_scan_cuda,
     )
     from focalnet_tpu_torch.utils import save_checkpoint
+    from focalnet_tpu_torch.utils.device import nvidia_smi as smi
 
     counters = (selective_scan_cuda, selective_scan_bwd_cuda)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -478,7 +580,7 @@ def main():
         fn()
         return time.perf_counter() - t0
 
-    sources = ((SOURCE, build), (SOURCE_BWD, build_bwd))
+    sources = ((SOURCE, build), (SOURCE_BWD, build_bwd), (SOURCE_FMA, build_fma))
     prebuilt = [os.path.exists(_build.library_path(src)) for src, _ in sources]
     with ThreadPoolExecutor(len(sources)) as ex:
         seconds = list(ex.map(timed_build, [fn for _, fn in sources]))
@@ -495,7 +597,15 @@ def main():
         selective_scan, selective_scan_cuda, selective_scan_bwd_cuda,
         selective_scan_bwd_ref, clock_mhz, sms)
 
-    # 4. serve at full width through the CLI
+    worst_fma, timing_fma = phase_kernel_probe(fma_passes_cuda, fma_passes_ref)
+
+    # 4. the FMA-rate probe's path, with launch counts
+    peak_tflops = 2 * FMA_LANES_PER_SM * sms * clock_mhz * 1e6 / 1e12
+    probe_launches, jax_pair, wide = phase_vpu_probe(
+        counters + (fma_passes_cuda,), fma_passes_cuda, selective_scan_bwd_cuda,
+        selective_scan_cuda, peak_tflops)
+
+    # 5. serve at full width through the CLI
     rng = np.random.default_rng(1234)
     with tempfile.TemporaryDirectory() as tmp:
         model = build_net("1mlp_g2", device="cuda",
@@ -528,7 +638,7 @@ def main():
             if mode == "whole_image":
                 serve_launches = launches
 
-        # 5. whole forward, kernel vs plain scan, on the card
+        # 6. whole forward, kernel vs plain scan, on the card
         plain = build_net("1mlp_g2", device="cuda", scan_backend="chunked")
         plain.load_state_dict(model.state_dict(), strict=True)
         img = rng.integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
@@ -556,10 +666,10 @@ def main():
         del model, plain, got, want
         torch.cuda.empty_cache()
 
-        # 6. whole gradient and train step at batch 4, 256x256
+        # 7. whole gradient and train step at batch 4, 256x256
         phase_grad(build_net, counters, card)
 
-        # 7. train through the CLI, then resume
+        # 8. train through the CLI, then resume
         train_launches = phase_train_cli(cli_main, counters, tmp)
 
     print(card, flush=True)
@@ -577,6 +687,18 @@ def main():
             shape=f"B=1 D=192 N=16 L={PATH_LS[0]} fp32, forward direction",
         ))
     entries[0]["launches_serve_3_requests"] = serve_launches
+    entries[0]["launches_vpu_probe"] = probe_launches["selective_scan_cuda"]
+    P = 8 * PROBE_PATH_LOOPS[1]
+    ms, plain_ms, b, by = timing_fma[P]
+    entries.append(dict(
+        name="fma_passes", route="cuda", source=f"focalnet_tpu_torch/ops/csrc/{SOURCE_FMA}",
+        replaces="benchmarks/vpu_probe.py:42", launches=probe_launches["fma_passes_cuda"],
+        max_abs_err=worst_fma, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        library_ms=None, shape=f"B=4 D=192 L=16384 fp32, P={P} passes",
+        probe_fma_tflops=wide["probe_fma_tflops"],
+        probe_fma_tflops_jax_pair=jax_pair["probe_fma_tflops"],
+        peak_fma_tflops=peak_tflops,
+    ))
     emit(kernels=entries)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})
 

@@ -3,6 +3,7 @@
 Usage:
     python -m focalnet_tpu_torch.main --mode serve --test_model <reference .pkl>
     python -m focalnet_tpu_torch.main --mode train --data_dir dataset/ITS
+    python -m focalnet_tpu_torch.main --flops_report
 
 Test and infer follow in a later slice (ROADMAP).  Runs on the CUDA card
 unless ``--device cpu``.
@@ -38,6 +39,8 @@ def main(argv=None, inp=None, out=None):
         overrides["ssm_d_state"] = args.ssm_d_state
     if args.scan_backend:
         overrides["scan_backend"] = args.scan_backend
+    if args.flops_report:
+        return _flops_report(args.preset, device, overrides)
     if args.mode == "train":
         return _train(args, build_net(
             args.preset, device=device,
@@ -60,6 +63,27 @@ def main(argv=None, inp=None, out=None):
     return serve(model, args.result_dir, factor=args.pad_factor, tile=args.tile,
                  tile_overlap=args.tile_overlap, batch_size=args.valid_batch,
                  warm_shapes=warm, inp=inp, out=out, device=device)
+
+
+def _flops_report(preset, device, overrides):
+    """Params and GFLOPs at 256x256, batch 1 (the JAX package's report): the
+    counted term (matrix products and convolutions, by ``FlopCounterMode`` on
+    the meta device, which computes nothing) plus the scan cost model, which
+    only VSSG blocks have.  Returns the three numbers."""
+    from focalnet_tpu_torch.configs import PRESETS
+    from focalnet_tpu_torch.models import build_net
+    from focalnet_tpu_torch.utils.flops import mimounet_scan_flops, model_flops
+
+    cfg = PRESETS[preset].replace(**overrides)
+    model = build_net(preset, device=device, **overrides)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = model_flops(model.to("meta"), torch.zeros(1, 256, 256, 3, device="meta"))
+    scan = mimounet_scan_flops(cfg, (256, 256)) if cfg.block_type == "vssg" else 0
+    print(f"params: {n_params/1e6:.3f}M")
+    print(f"counted flops @256^2: {flops/1e9:.2f} GFLOPs"
+          f" + scan {scan/1e9:.2f} GFLOPs (9BLDN model)"
+          f" = {(flops+scan)/1e9:.2f} GFLOPs total", flush=True)
+    return dict(params=n_params, counted_flops=flops, scan_flops=scan)
 
 
 def _train(args, model):
@@ -122,6 +146,9 @@ def parse_args(argv=None):
                    help="rolling checkpoint (model.pkl) to continue from")
     p.add_argument("--model_save_dir", type=str, default="results/weights")
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--flops_report", action="store_true",
+                   help="print params and GFLOPs at 256x256 and stop (the JAX "
+                        "CLI goes on to --mode; here the report is the whole run)")
     p.add_argument("--device", type=str, default="",
                    help="'' = the CUDA card (error without one); 'cpu' to run "
                         "on the CPU")

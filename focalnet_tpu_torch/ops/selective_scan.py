@@ -87,8 +87,11 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
     """Selective scan with the oracle's canonical shapes
     (:mod:`focalnet_tpu_torch.ops.scan_ref`).  ``out_dtype=None`` means fp32
     (the "oflex" contract).  ``reverse=True`` scans right to left;
-    ``y_accum`` (y's shape) is added into y."""
+    ``y_accum`` (y's shape) is added into y.  On the meta device only y's
+    shape and dtype are formed, whatever the backend."""
     out_dtype = out_dtype or torch.float32
+    if u.is_meta:  # shapes only (a FLOP count): y has u's shape
+        return torch.empty(u.shape, dtype=out_dtype, device=u.device)
     if backend == "auto":
         backend = "cuda" if u.is_cuda else "chunked"
     if backend not in BACKENDS:

@@ -16,3 +16,14 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def nvidia_smi(query: str = "name,power.limit", fmt: str = "csv,noheader") -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi --query-gpu={query}: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 import focalnet_tpu_torch.utils.device as device_mod
+from focalnet_tpu_torch.benchmarks import vpu_probe
 from focalnet_tpu_torch.evaluation import serve
 from focalnet_tpu_torch.main import main
 from focalnet_tpu_torch.models import build_net
 from focalnet_tpu_torch.ops import selective_scan
+from focalnet_tpu_torch.ops.fma_passes import fma_passes_cuda, fma_passes_ref
 from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
 from focalnet_tpu_torch.ops.selective_scan_cuda import (
     selective_scan_bwd_cuda,
@@ -38,7 +40,8 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'focalnet_tpu'))\n"
         "for m in ('main', 'train.trainer', 'train.checkpoint', 'data.reside',\n"
-        "          'evaluation.evaluator', 'ops.scan_bwd_ref'):\n"
+        "          'evaluation.evaluator', 'ops.scan_bwd_ref', 'ops.fma_passes',\n"
+        "          'benchmarks.vpu_probe', 'utils.flops', 'utils.profiling'):\n"
         "    assert 'focalnet_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
     )
@@ -60,6 +63,10 @@ def test_no_device_raises_without_cuda(monkeypatch, tmp_path):
         main(["--mode", "serve", "--test_model", "unused.pkl"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--mode", "train", "--data_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--flops_report"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vpu_probe.main([])
 
 
 def _scan_inputs(device, L=300, dim=8, N=4, G=2):
@@ -163,3 +170,33 @@ def test_train_step_on_card_matches_plain():
         grads.append({k: p.grad for k, p in model.named_parameters()})
     for k, w in grads[1].items():
         assert (grads[0][k] - w).abs().max().item() <= 1e-3 * w.abs().max().item() + 1e-5, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_loop", [1, 8, 64])  # P = 8, 64, 512 passes
+def test_fma_passes_kernel_matches_plain_on_card(n_loop):
+    """K3 against its plain version (one FMA per pass against a rounded
+    product and sum: rtol 1e-4), on the float4 path, on a ragged size (the
+    float4 kernel, then the one-float kernel for the tail), on a view that
+    is not 16-byte aligned (the one-float path) and on an empty tensor (no
+    kernel), with the kernels each launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    full = torch.rand(1, 1, 192, 4096 + 3, generator=g, device="cuda")
+    for x, kernels in ((full[..., :4096].contiguous(), 1), (full.reshape(-1)[:1001], 2),
+                       (full.reshape(-1)[1:1002], 1), (full.reshape(-1)[:0], 0)):
+        before = fma_passes_cuda.launches
+        got = fma_passes_cuda(x, n_loop)
+        torch.cuda.synchronize()
+        assert fma_passes_cuda.launches == before + kernels
+        torch.testing.assert_close(got, fma_passes_ref(x, n_loop), rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_fma_passes_kernel_raises_on_other_dtypes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    for dtype in (torch.bfloat16, torch.float64):
+        with pytest.raises(ValueError, match="float32"):
+            fma_passes_cuda(torch.zeros(8, dtype=dtype, device="cuda"), 1)
