@@ -7,8 +7,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds every kernel of the port's main paths from the checkout's sources
 (the selective-scan forward and backward and the FMA-pass probe, one nvcc
-each, in parallel), holds each against its plain PyTorch version at the main
-paths' shapes, runs the fp32 FMA-rate probe
+each, in parallel; and the backward kernel as of its baseline commit, to be
+timed beside it, when the checkout's history or ``_build/baseline/`` holds
+it), holds each against its plain PyTorch version at the main paths' shapes
+(the backward kernel at batch 1 and 4 and at every tile of channels it
+takes), runs the fp32 FMA-rate probe
 (``python -m focalnet_tpu_torch.benchmarks.vpu_probe``) with launch counts,
 serves the full-width ``1mlp_g2`` dehazer through the CLI's ``--mode serve``
 (whole-image and ``--tile``) with kernel launch counts, compares the whole
@@ -111,19 +114,19 @@ def max_err(got, want, rtol, atol):
     return float(diff.max()), ok
 
 
-def scan_inputs(L, dim=192, N=16, dtype=torch.float32, seed=0):
+def scan_inputs(L, dim=192, N=16, dtype=torch.float32, seed=0, batch=1, groups=1):
     """Scan operands at the main path's widths, with the model's A and dt laws."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")
     dt = torch.exp(torch.rand(dim, generator=g, device="cuda")
                    * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     x = dict(
-        u=r(1, dim, L).to(dtype), delta=(0.1 * r(1, dim, L)).to(dtype),
+        u=r(batch, dim, L).to(dtype), delta=(0.1 * r(batch, dim, L)).to(dtype),
         A=-torch.arange(1.0, N + 1, device="cuda").expand(dim, N).contiguous(),
-        B=(0.5 * r(1, 1, N, L)).to(dtype), C=(0.5 * r(1, 1, N, L)).to(dtype),
+        B=(0.5 * r(batch, groups, N, L)).to(dtype), C=(0.5 * r(batch, groups, N, L)).to(dtype),
         D=r(dim), delta_bias=dt + torch.log(-torch.expm1(-dt)),
     )
-    return x, r(1, dim, L)
+    return x, r(batch, dim, L)
 
 
 def bound(L, dim=192, N=16, in_bytes=4, out_bytes=4, accum=False):
@@ -142,19 +145,19 @@ def sfu_ms(L, clock_mhz, sms, dim=192, N=16):
     return dim * N * L / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6) * 1e3
 
 
-def bound_bwd(L, clock_mhz, sms, dim=192, N=16, in_bytes=4):
+def bound_bwd(L, clock_mhz, sms, dim=192, N=16, in_bytes=4, batch=1):
     """Least time (ms) for one backward call: the larger of the bytes moved
     once (u, delta, B, C, du, ddelta in the input dtype; dy, the chunk
     states, dB, dC, A, D, bias, dA, dD, dbias in fp32) at the memory rate,
-    22*L*D*N + 10*L*D fp32 operations (the forward's 9 per state and element
-    again, 13 for the adjoint and its sums) at the fp32 rate, and the
-    exponentials' floor."""
+    22*L*D*N + 10*L*D fp32 operations per batch row (the forward's 9 per
+    state and element again, 13 for the adjoint and its sums) at the fp32
+    rate, and the exponentials' floor."""
     n_chunks = -(-L // 256)
-    nbytes = (dim * L * (4 * in_bytes + 4) + 2 * N * L * (in_bytes + 4)
-              + dim * n_chunks * N * 4 + 2 * (dim * N + 2 * dim) * 4)
+    nbytes = (batch * (dim * L * (4 * in_bytes + 4) + 2 * N * L * (in_bytes + 4)
+                       + dim * n_chunks * N * 4) + 2 * (dim * N + 2 * dim) * 4)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (22 * L * dim * N + 10 * L * dim) / PEAK_FP32_FLOPS * 1e3
-    t_sfu = sfu_ms(L, clock_mhz, sms, dim, N)
+    t_ops = batch * (22 * L * dim * N + 10 * L * dim) / PEAK_FP32_FLOPS * 1e3
+    t_sfu = batch * sfu_ms(L, clock_mhz, sms, dim, N)
     return max(t_bytes, t_ops, t_sfu), "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
 
 
@@ -225,53 +228,88 @@ def phase_kernel(scan, clock_mhz, sms):
     return worst, timing
 
 
-def phase_kernel_bwd(scan, fwd, bwd, bwd_ref, clock_mhz, sms):
-    """The backward kernel vs its plain version at the path's shapes, through
-    the autograd Function (the forward kernel with chunk states, then the
-    backward kernel) against the plain Function (plain forward, plain
-    adjoint): every gradient, with and without y_accum, both directions,
-    fp32 and bf16 in.  Then K2's own time vs the plain adjoint's."""
+def bwd_vs_plain(scan, L, rev, acc, inp, batch=1, dim=192, groups=1):
+    """K2 vs its plain version through the autograd Function (the forward
+    kernel with chunk states, then the backward kernel) against the plain
+    Function (plain forward, plain adjoint): every gradient's max abs error;
+    fails outside GRAD_TOLS."""
+    x, dy = scan_inputs(L, dim=dim, dtype=inp, seed=1, batch=batch, groups=groups)
+    yacc = torch.randn_like(dy) if acc else None
+    grads = []
+    for backend in ("cuda", "chunked"):
+        leaves = {k: v.clone().requires_grad_() for k, v in x.items()}
+        ya = yacc.clone().requires_grad_() if acc else None
+        y = scan(**leaves, delta_softplus=True, backend=backend, reverse=rev, y_accum=ya)
+        grads.append(torch.autograd.grad(y, list(leaves.values()) + ([ya] if acc else []), dy))
+    torch.cuda.synchronize()
+    rtol, atol = GRAD_TOLS[inp]
+    errs = {}
+    for name, g, w in zip(GRAD_NAMES, *grads):
+        err, ok = grad_err(g, w, rtol, atol)
+        errs[name] = err
+        if not ok:
+            fail(f"backward kernel: {name} disagrees at B={batch} D={dim} G={groups} L={L} "
+                 f"reverse={rev} y_accum={acc} in={inp}: max abs err {err}")
+    return errs
+
+
+def phase_kernel_bwd(scan, fwd, bwd, bwd_ref, tile_of, baseline, clock_mhz, sms):
+    """The backward kernel vs its plain version: every gradient, at the
+    path's shapes at B = 1 (with and without y_accum) and at the train
+    step's B = 4, both directions, fp32 and bf16 in; then at B = 4 with two
+    groups, and at widths and batches that take each tile of channels
+    (fails unless tiles of 1, 2, 3, 4 and 6 were all taken).
+    Then K2's own time at B = 1 and B = 4 vs the plain adjoint's and, when
+    ``baseline`` (K2 before the channel tiles) was built, vs its time, in
+    turns (baseline, K2, K2, baseline)."""
+    from focalnet_tpu_torch.ops.selective_scan_cuda import launch_bwd
+
     worst = 0.0
-    for L in PATH_LS + (1000,):
-        for rev in (False, True):
-            for acc in (False, True):
-                for inp in (torch.float32, torch.bfloat16):
-                    x, dy = scan_inputs(L, dtype=inp, seed=1)
-                    yacc = torch.randn_like(dy) if acc else None
-                    grads = []
-                    for backend in ("cuda", "chunked"):
-                        leaves = {k: v.clone().requires_grad_() for k, v in x.items()}
-                        ya = yacc.clone().requires_grad_() if acc else None
-                        y = scan(**leaves, delta_softplus=True, backend=backend,
-                                 reverse=rev, y_accum=ya)
-                        grads.append(torch.autograd.grad(
-                            y, list(leaves.values()) + ([ya] if acc else []), dy))
-                    torch.cuda.synchronize()
-                    rtol, atol = GRAD_TOLS[inp]
-                    errs = {}
-                    for name, g, w in zip(GRAD_NAMES, *grads):
-                        err, ok = grad_err(g, w, rtol, atol)
-                        errs[name] = err
-                        if not ok:
-                            fail(f"backward kernel: {name} disagrees at L={L} reverse={rev} "
-                                 f"y_accum={acc} in={inp}: max abs err {err}")
-                    emit(phase="kernel_bwd_vs_plain", L=L, reverse=rev, y_accum=acc,
-                         in_dtype=str(inp), max_abs_err=errs, rtol=rtol, atol=atol, ok=True)
-                    if inp == torch.float32:
-                        worst = max(worst, *errs.values())
+    cases = [(1, 192, 1, L, rev, acc, inp) for L in PATH_LS + (1000,) for rev in (False, True)
+             for acc in (False, True) for inp in (torch.float32, torch.bfloat16)]
+    cases += [(TRAIN_BATCH, 192, 1, L, rev, False, inp) for L in PATH_LS + (1000,)
+              for rev in (False, True) for inp in (torch.float32, torch.bfloat16)]
+    cases += [(TRAIN_BATCH, 192, 2, 4096, rev, False, inp) for rev in (False, True)
+              for inp in (torch.float32, torch.bfloat16)]
+    # widths that take each tile of T channels: T divides a group's channels
+    # and the batch fills the SMs with one wave of T-channel blocks
+    for dim, T in ((12, 6), (16, 4), (18, 3), (20, 2), (10, 1)):  # 6, 8, 9, 10, 5 a group
+        cases += [(sms * T // dim, dim, 2, 1000, rev, False, torch.float32)
+                  for rev in (False, True)]
+    tiles = set()
+    for batch, dim, groups, L, rev, acc, inp in cases:
+        errs = bwd_vs_plain(scan, L, rev, acc, inp, batch, dim, groups)
+        rtol, atol = GRAD_TOLS[inp]
+        tile = tile_of(batch, dim, groups, 16, inp)
+        tiles.add(tile)
+        emit(phase="kernel_bwd_vs_plain", batch=batch, dim=dim, groups=groups, tile=tile,
+             L=L, reverse=rev, y_accum=acc, in_dtype=str(inp), max_abs_err=errs,
+             rtol=rtol, atol=atol, ok=True)
+        if inp == torch.float32:
+            worst = max(worst, *errs.values())
+    if tiles != {1, 2, 3, 4, 6}:
+        fail(f"the backward kernel's checks took tiles {sorted(tiles)}, not 1, 2, 3, 4, 6")
     timing = {}
     with torch.inference_mode():
-        for L in PATH_LS:
-            x, dy = scan_inputs(L, seed=1)
-            for rev in (False, True):
-                _, hchk = fwd(**x, delta_softplus=True, reverse=rev, chunk_states=True)
-                args = (*x.values(), dy)
-                ms = kernel_ms(lambda: bwd(*args, hchk, True, rev), "selective_scan_bwd")
-                plain = time_ms(lambda: bwd_ref(*args, True, rev), reps=5, warmup=1)
-                b, by = bound_bwd(L, clock_mhz, sms)
-                emit(phase="kernel_bwd_time", L=L, reverse=rev, ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, sfu_exp_ms=sfu_ms(L, clock_mhz, sms))
-                timing[(L, rev)] = (ms, plain, b, by)
+        for batch in (1, TRAIN_BATCH):
+            for L in PATH_LS:
+                x, dy = scan_inputs(L, seed=1, batch=batch)
+                for rev in (False, True):
+                    _, hchk = fwd(**x, delta_softplus=True, reverse=rev, chunk_states=True)
+                    args = (*x.values(), dy, hchk, True, rev)
+                    k2_ms = lambda lib: kernel_ms(lambda: launch_bwd(lib, *args),
+                                                  "selective_scan_bwd")
+                    base_ms = [k2_ms(baseline)] if baseline else []
+                    ms = [kernel_ms(lambda: bwd(*args), "selective_scan_bwd") for _ in range(2)]
+                    base_ms += [k2_ms(baseline)] if baseline else []
+                    plain = time_ms(lambda: bwd_ref(*args[:8], True, rev), reps=5, warmup=1)
+                    b, by = bound_bwd(L, clock_mhz, sms, batch=batch)
+                    emit(phase="kernel_bwd_time", batch=batch, L=L, reverse=rev,
+                         tile=tile_of(batch, 192), ms=ms, baseline_ms=base_ms or None,
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         sfu_exp_ms=batch * sfu_ms(L, clock_mhz, sms))
+                    timing[(batch, L, rev)] = (statistics.mean(ms), plain, b, by,
+                                               statistics.mean(base_ms) if base_ms else None)
     return worst, timing
 
 
@@ -449,9 +487,9 @@ def phase_grad(build_net, counters, card):
     torch.cuda.empty_cache()
     model = build_net("1mlp_g2", device="cuda",
                       generator=torch.Generator().manual_seed(1234)).train()
-    from focalnet_tpu_torch.models import set_drop_path_generator
+    from focalnet_tpu_torch.models import set_dropout_generator
 
-    set_drop_path_generator(model, torch.Generator(device="cuda").manual_seed(0))
+    set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(0))
     step = make_train_step(model, make_optimizer(model))
     phase_profile("profile_train_step", lambda: step(x, gt), reps=3)
     return ms, plain_ms
@@ -548,11 +586,14 @@ def main():
     from focalnet_tpu_torch.ops.fma_passes import fma_passes_cuda, fma_passes_ref
     from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
     from focalnet_tpu_torch.ops.selective_scan import selective_scan
+    from focalnet_tpu_torch.benchmarks.scan_bwd_split import BASELINE_COMMIT, baseline_source
     from focalnet_tpu_torch.ops.selective_scan_cuda import (
         SOURCE,
         SOURCE_BWD,
+        bind_bwd,
         build,
         build_bwd,
+        bwd_tile_channels,
         selective_scan_bwd_cuda,
         selective_scan_cuda,
     )
@@ -580,22 +621,35 @@ def main():
         fn()
         return time.perf_counter() - t0
 
-    sources = ((SOURCE, build), (SOURCE_BWD, build_bwd), (SOURCE_FMA, build_fma))
-    prebuilt = [os.path.exists(_build.library_path(src)) for src, _ in sources]
-    with ThreadPoolExecutor(len(sources)) as ex:
-        seconds = list(ex.map(timed_build, [fn for _, fn in sources]))
-    for (src, _), pre, secs in zip(sources, prebuilt, seconds):
-        lib_path = _build.library_path(src)
+    # K2 before the channel tiles, for its time beside K2's (not committed:
+    # from the checkout's history, or put under _build/baseline/ beforehand)
+    base_src = baseline_source()
+    builds = [(SOURCE, _build.CSRC_DIR, build), (SOURCE_BWD, _build.CSRC_DIR, build_bwd),
+              (SOURCE_FMA, _build.CSRC_DIR, build_fma)]
+    if base_src:
+        base_dir = os.path.dirname(base_src)
+        builds.append((SOURCE_BWD, base_dir,
+                       lambda: bind_bwd(_build.load_library(SOURCE_BWD, base_dir))))
+    prebuilt = [os.path.exists(_build.library_path(src, d)) for src, d, _ in builds]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        futures = [ex.submit(timed_build, fn) for _, _, fn in builds]
+        seconds = [f.result() for f in futures]
+    for (src, d, _), pre, secs in zip(builds, prebuilt, seconds):
+        lib_path = _build.library_path(src, d)
         with open(lib_path + ".log") as f:
             ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        emit(phase="build", source=src, seconds=secs, prebuilt=pre,
-             library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
+        emit(phase="build", source=os.path.relpath(os.path.join(d, src), ROOT),
+             seconds=secs, prebuilt=pre, library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
+    baseline = bind_bwd(_build.load_library(SOURCE_BWD, base_dir)) if base_src else None
+    emit(phase="k2_baseline", commit=BASELINE_COMMIT, built=baseline is not None,
+         note=None if base_src else "no history and no copy under _build/baseline/: "
+         "K2 is timed alone")
 
     # 3. kernels vs plain, and times
     worst, timing = phase_kernel(selective_scan, clock_mhz, sms)
     worst_bwd, timing_bwd = phase_kernel_bwd(
         selective_scan, selective_scan_cuda, selective_scan_bwd_cuda,
-        selective_scan_bwd_ref, clock_mhz, sms)
+        selective_scan_bwd_ref, bwd_tile_channels, baseline, clock_mhz, sms)
 
     worst_fma, timing_fma = phase_kernel_probe(fma_passes_cuda, fma_passes_ref)
 
@@ -675,10 +729,12 @@ def main():
     print(card, flush=True)
     entries = []
     for name, src, line, t, err, launches in (
-        ("selective_scan_fwd", SOURCE, 347, timing, worst, train_launches[0]),
-        ("selective_scan_bwd", SOURCE_BWD, 421, timing_bwd, worst_bwd, train_launches[1]),
+        ("selective_scan_fwd", SOURCE, 347, timing[(PATH_LS[0], False)], worst,
+         train_launches[0]),
+        ("selective_scan_bwd", SOURCE_BWD, 421, timing_bwd[(1, PATH_LS[0], False)], worst_bwd,
+         train_launches[1]),
     ):
-        ms, plain_ms, b, by = t[(PATH_LS[0], False)]
+        ms, plain_ms, b, by = t[:4]
         entries.append(dict(
             name=name, route="cuda", source=f"focalnet_tpu_torch/ops/csrc/{src}",
             replaces=f"focalnet_tpu/ops/pallas_scan.py:{line}",
@@ -686,6 +742,11 @@ def main():
             bound_ms=b, bound_by=by, library_ms=None,
             shape=f"B=1 D=192 N=16 L={PATH_LS[0]} fp32, forward direction",
         ))
+    ms, plain_ms, b, by, base_ms = timing_bwd[(TRAIN_BATCH, PATH_LS[0], False)]
+    entries[1].update(ms_b4_l16384=ms, plain_ms_b4_l16384=plain_ms, bound_ms_b4_l16384=b,
+                      baseline_ms_b4_l16384=base_ms, baseline_ms=timing_bwd[(1, PATH_LS[0], False)][4],
+                      tile_channels_b4=bwd_tile_channels(TRAIN_BATCH, 192),
+                      tile_channels=bwd_tile_channels(1, 192))
     entries[0]["launches_serve_3_requests"] = serve_launches
     entries[0]["launches_vpu_probe"] = probe_launches["selective_scan_cuda"]
     P = 8 * PROBE_PATH_LOOPS[1]

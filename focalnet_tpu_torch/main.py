@@ -1,12 +1,15 @@
 """CLI entry point of the port (counterpart of ``focalnet_tpu/main.py``).
 
 Usage:
+    python -m focalnet_tpu_torch.main --data_dir dataset/ITS    # --mode train
     python -m focalnet_tpu_torch.main --mode serve --test_model <reference .pkl>
-    python -m focalnet_tpu_torch.main --mode train --data_dir dataset/ITS
-    python -m focalnet_tpu_torch.main --flops_report
+    python -m focalnet_tpu_torch.main --flops_report --mode serve
 
-Test and infer follow in a later slice (ROADMAP).  Runs on the CUDA card
-unless ``--device cpu``.
+The defaults are the JAX CLI's: ``--mode train``, ``--test_model
+results/weights/Best.pkl`` (the reference-format counterpart of JAX's Orbax
+``results/weights/Best``); ``--flops_report`` prints its report and then
+runs ``--mode``.  Test and infer follow in a later slice (ROADMAP).  Runs on
+the CUDA card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -22,13 +25,14 @@ import torch
 
 
 def main(argv=None, inp=None, out=None):
-    """Parse ``argv`` and run; ``inp``/``out`` replace stdin/stdout."""
+    """Parse ``argv`` and run; ``inp``/``out`` replace stdin/stdout.  Returns
+    the report's numbers under ``--flops_report``, else what the mode
+    returns."""
     args = parse_args(argv)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
-    from focalnet_tpu_torch.models import build_net
     from focalnet_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device or None)
@@ -39,8 +43,15 @@ def main(argv=None, inp=None, out=None):
         overrides["ssm_d_state"] = args.ssm_d_state
     if args.scan_backend:
         overrides["scan_backend"] = args.scan_backend
-    if args.flops_report:
-        return _flops_report(args.preset, device, overrides)
+    report = _flops_report(args.preset, device, overrides) if args.flops_report else None
+    result = _run_mode(args, device, overrides, inp, out)
+    return report if report is not None else result
+
+
+def _run_mode(args, device, overrides, inp, out):
+    """``--mode train`` or ``--mode serve``."""
+    from focalnet_tpu_torch.models import build_net
+
     if args.mode == "train":
         return _train(args, build_net(
             args.preset, device=device,
@@ -110,8 +121,8 @@ def _train(args, model):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="focalnet_tpu_torch")
     p.add_argument("--preset", type=str, default="1mlp_g2", choices=["1mlp_g2"])
-    p.add_argument("--mode", type=str, default="serve", choices=["serve", "train"])
-    p.add_argument("--test_model", type=str, default="",
+    p.add_argument("--mode", type=str, default="train", choices=["serve", "train"])
+    p.add_argument("--test_model", type=str, default="results/weights/Best.pkl",
                    help="--mode serve: reference-format .pkl ({'model': "
                         "state_dict, ...})")
     p.add_argument("--result_dir", type=str, default="results/images",
@@ -147,8 +158,7 @@ def parse_args(argv=None):
     p.add_argument("--model_save_dir", type=str, default="results/weights")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--flops_report", action="store_true",
-                   help="print params and GFLOPs at 256x256 and stop (the JAX "
-                        "CLI goes on to --mode; here the report is the whole run)")
+                   help="print params and GFLOPs at 256x256, then run --mode")
     p.add_argument("--device", type=str, default="",
                    help="'' = the CUDA card (error without one); 'cpu' to run "
                         "on the CPU")

@@ -79,7 +79,7 @@ class DropPath(nn.Module):
     """Per-sample stochastic depth; the identity in eval mode.
 
     In training mode the masks come from ``self.generator``, a
-    ``torch.Generator`` on the device of x that :func:`set_drop_path_generator`
+    ``torch.Generator`` on the device of x that :func:`set_dropout_generator`
     hands to every DropPath of a model (the JAX module draws from
     ``make_rng("droppath")``); without one it raises rather than draw from
     the global RNG."""
@@ -94,18 +94,42 @@ class DropPath(nn.Module):
             return x
         if self.generator is None:
             raise RuntimeError("DropPath in training mode needs a generator: "
-                               "call set_drop_path_generator(model, generator)")
+                               "call set_dropout_generator(model, generator)")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def set_drop_path_generator(model: nn.Module, generator: torch.Generator) -> None:
-    """Give every DropPath of ``model`` the one ``generator`` (on the device
-    the model runs on) to draw its masks from."""
+class Dropout(nn.Module):
+    """Elementwise dropout whose masks come from ``self.generator``, the
+    ``torch.Generator`` that :func:`set_dropout_generator` hands it (the JAX
+    module draws from ``make_rng("dropout")``); the identity, drawing
+    nothing, at rate 0 and in eval mode.  Without a generator, training at a
+    nonzero rate raises rather than draw from the global RNG.  No
+    parameters or buffers: the state dict does not change."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training mode needs a generator: "
+                               "call set_dropout_generator(model, generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Give every DropPath and Dropout of ``model`` the one ``generator``
+    (on the device the model runs on) to draw its masks from."""
     for m in model.modules():
-        if isinstance(m, DropPath):
+        if isinstance(m, (DropPath, Dropout)):
             m.generator = generator
 
 
@@ -118,7 +142,7 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features or in_features)
         self.act = _ACTS[act]
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x):
         return self.drop(self.fc2(self.drop(self.act(self.fc1(x)))))
@@ -158,7 +182,7 @@ class SS2D(nn.Module):
         self.Ds = nn.Parameter(torch.empty(K_DIRS * D))
         self.out_norm = nn.LayerNorm(D, eps=1e-5)
         self.out_proj = nn.Linear(D, d_model, bias=bias)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     @torch.no_grad()
     def reset_parameters_from(self, generator: torch.Generator) -> None:

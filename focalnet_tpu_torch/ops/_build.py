@@ -37,24 +37,25 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(source: str) -> str:
-    """Where the library built from ``csrc/<source>`` lives."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+def library_path(source: str, csrc_dir: str = CSRC_DIR) -> str:
+    """Where the library built from ``<csrc_dir>/<source>`` lives."""
+    with open(os.path.join(csrc_dir, source), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Build ``csrc/<source>`` unless its current build exists, then load it.
+def load_library(source: str, csrc_dir: str = CSRC_DIR) -> ctypes.CDLL:
+    """Build ``<csrc_dir>/<source>`` (by default a source of ``ops/csrc``)
+    unless its current build exists, then load it.
 
     Raises with nvcc's output when the build fails.  The compiler's report
     (``-Xptxas -v``) is kept beside the library as ``<lib>.log``."""
-    out = library_path(source)
+    out = library_path(source, csrc_dir)
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc_dir, source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -43,10 +43,9 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def build_bwd() -> ctypes.CDLL:
-    """Build (at first use) and bind the backward kernel's library."""
-    lib = load_library(SOURCE_BWD)
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from a backward-kernel
+    source (this one, or another version of it for a comparison)."""
     fn = lib.focalnet_selective_scan_bwd
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -55,6 +54,28 @@ def build_bwd() -> ctypes.CDLL:
     lib.focalnet_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.focalnet_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def build_bwd() -> ctypes.CDLL:
+    """Build (at first use) and bind the backward kernel's library."""
+    lib = bind_bwd(load_library(SOURCE_BWD))
+    lib.focalnet_selective_scan_bwd_tile.argtypes = [ctypes.c_int] * 5
+    lib.focalnet_selective_scan_bwd_tile.restype = ctypes.c_int
+    return lib
+
+
+def bwd_tile_channels(batch: int, dim: int, groups: int = 1, dstate: int = 16,
+                      dtype=torch.float32) -> int:
+    """The channels one block of the backward kernel takes for operands of
+    these widths on the current CUDA device, as its launch chooses them
+    (``csrc/selective_scan_bwd.cu``, ``tile_channels``)."""
+    t = build_bwd().focalnet_selective_scan_bwd_tile(
+        batch, dim, groups, dstate, int(dtype == torch.bfloat16))
+    if t <= 0:
+        msg = build_bwd().focalnet_scan_bwd_error_string(-t).decode()
+        raise RuntimeError(f"selective_scan_bwd: no tile for these widths: {msg} ({-t})")
+    return t
 
 
 def _check(cond, msg):
@@ -167,9 +188,23 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, dy, hchk,
     if u.device.type == "cpu":
         return selective_scan_bwd_ref(u, delta, A, B, C, D, delta_bias, dy,
                                       delta_softplus, reverse)
+    grads = launch_bwd(build_bwd(), u, delta, A, B, C, D, delta_bias, dy, hchk,
+                       delta_softplus, reverse)
+    selective_scan_bwd_cuda.launches += 1
+    return grads
+
+
+selective_scan_bwd_cuda.launches = 0
+
+
+def launch_bwd(lib, u, delta, A, B, C, D, delta_bias, dy, hchk,
+               delta_softplus=False, reverse=False):
+    """Check the operands of :func:`selective_scan_bwd_cuda` on the card,
+    allocate the gradients and launch the kernel of ``lib`` (a library bound
+    by :func:`bind_bwd`) once on the current stream; raises if the launch
+    fails.  Counts nothing: the wrapper does."""
     batch, dim, G, N, L = _check_operands(
-        u, delta, A, B, C, D, delta_bias,
-        build_bwd().focalnet_selective_scan_bwd_max_dstate())
+        u, delta, A, B, C, D, delta_bias, lib.focalnet_selective_scan_bwd_max_dstate())
     _check(dy.shape == u.shape and dy.dtype in _DTYPES and dy.device == u.device,
            "dy must have y's shape, a float32 or bfloat16 dtype and u's device")
     n_chunks = -(-L // KERNEL_CHUNK)
@@ -188,7 +223,7 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, dy, hchk,
     dD = None if D is None else torch.zeros(dim, **f32)
     dbias = None if delta_bias is None else torch.zeros(dim, **f32)
     with torch.cuda.device(u.device):
-        rc = build_bwd().focalnet_selective_scan_bwd(
+        rc = lib.focalnet_selective_scan_bwd(
             _ptr(u), _ptr(delta), _ptr(A), _ptr(B), _ptr(C), _ptr(D), _ptr(delta_bias),
             _ptr(hchk), _ptr(dy), _ptr(du), _ptr(ddelta), _ptr(dA), _ptr(dB), _ptr(dC),
             _ptr(dD), _ptr(dbias), batch, dim, G, N, L, int(delta_softplus),
@@ -196,10 +231,6 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, dy, hchk,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     if rc != 0:
-        msg = build_bwd().focalnet_scan_bwd_error_string(rc).decode()
+        msg = lib.focalnet_scan_bwd_error_string(rc).decode()
         raise RuntimeError(f"selective_scan_bwd launch failed: {msg} ({rc})")
-    selective_scan_bwd_cuda.launches += 1
     return du, ddelta, dA, dB, dC, dD, dbias
-
-
-selective_scan_bwd_cuda.launches = 0

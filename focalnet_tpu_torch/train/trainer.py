@@ -7,10 +7,10 @@ best / final checkpoints, batch-1 validation at epoch 1 and every
 ``valid_freq`` epochs, and stdout lines in the reference's log-scraper
 formats (``Time: ... Epoch: ... Iter: ...``, ``EPOCH: ...``, ``Average PSNR``).
 
-The model trains in ``train()`` mode: DropPath draws from one generator on
-the card, seeded from ``seed`` and the step index at every step, so a
-resumed run draws the masks the uninterrupted one would have (the JAX loop
-folds the step index into its key).  Loss values stay on the device until a
+The model trains in ``train()`` mode: DropPath and Dropout draw from one
+generator on the card, seeded from ``seed`` and the step index at every
+step, so a resumed run draws the masks the uninterrupted one would have (the
+JAX loop folds the step index into its key).  Loss values stay on the device until a
 print boundary, so the host does not wait for the card every step.
 """
 
@@ -26,7 +26,7 @@ import torch
 from focalnet_tpu_torch.configs import TrainConfig
 from focalnet_tpu_torch.data.reside import TrainLoader
 from focalnet_tpu_torch.evaluation.evaluator import validate
-from focalnet_tpu_torch.models.ss2d import set_drop_path_generator
+from focalnet_tpu_torch.models.ss2d import set_dropout_generator
 from focalnet_tpu_torch.train.checkpoint import CheckpointManager, restore
 from focalnet_tpu_torch.train.losses import multiscale_loss
 from focalnet_tpu_torch.train.schedule import warmup_cosine_epoch_lr
@@ -75,7 +75,7 @@ def make_train_step(model, optimizer, fft_weight: float = 0.1,
 
 
 def step_seed(seed: int, step: int) -> int:
-    """The DropPath generator's seed at global step ``step``."""
+    """The DropPath and Dropout generator's seed at global step ``step``."""
     return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
 
 
@@ -96,7 +96,7 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
                          crop=cfg.crop_size, seed=cfg.seed)
     max_iter = len(loader)
     generator = torch.Generator(device=device)
-    set_drop_path_generator(model, generator)
+    set_dropout_generator(model, generator)
     model.train()
     train_step = make_train_step(model, optimizer, cfg.fft_loss_weight,
                                  cfg.grad_clip, cfg.grad_accum)

@@ -20,6 +20,7 @@ from focalnet_tpu_torch.ops import selective_scan
 from focalnet_tpu_torch.ops.fma_passes import fma_passes_cuda, fma_passes_ref
 from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
 from focalnet_tpu_torch.ops.selective_scan_cuda import (
+    bwd_tile_channels,
     selective_scan_bwd_cuda,
     selective_scan_cuda,
 )
@@ -69,15 +70,15 @@ def test_no_device_raises_without_cuda(monkeypatch, tmp_path):
         vpu_probe.main([])
 
 
-def _scan_inputs(device, L=300, dim=8, N=4, G=2):
+def _scan_inputs(device, L=300, dim=8, N=4, G=2, batch=2):
     g = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g)
     t = dict(
-        u=r(2, dim, L) * 0.5, delta=torch.rand(2, dim, L, generator=g) * 0.5,
-        A=-0.5 - 2 * torch.rand(dim, N, generator=g), B=r(2, G, N, L) * 0.5,
-        C=r(2, G, N, L) * 0.5, D=r(dim), delta_bias=0.3 * r(dim),
+        u=r(batch, dim, L) * 0.5, delta=torch.rand(batch, dim, L, generator=g) * 0.5,
+        A=-0.5 - 2 * torch.rand(dim, N, generator=g), B=r(batch, G, N, L) * 0.5,
+        C=r(batch, G, N, L) * 0.5, D=r(dim), delta_bias=0.3 * r(dim),
     )
-    return {k: v.to(device) for k, v in t.items()}, r(2, dim, L).to(device)
+    return {k: v.to(device) for k, v in t.items()}, r(batch, dim, L).to(device)
 
 
 def test_cuda_backend_raises_on_cpu_tensors():
@@ -141,6 +142,47 @@ def test_backward_kernel_matches_plain_on_card(reverse, in_dtype):
     assert torch.equal(got[7], dy)
     for g, w in zip(got[:7], want):
         assert g.dtype == w.dtype or g.dtype == in_dtype
+        scale = max(w.float().abs().max().item(), 1.0)
+        tol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,G,N,L,reverse,in_dtype,tile", [
+    (192, 2, 16, 1024, False, torch.float32, 6),   # two groups of 96 channels
+    (12, 2, 16, 1000, True, torch.float32, 6),     # 6 channels a group
+    (16, 2, 16, 1000, False, torch.float32, 4),    # 8 a group
+    (18, 2, 16, 1000, True, torch.float32, 3),     # 9 a group
+    (20, 2, 16, 1000, False, torch.float32, 2),    # 10 a group
+    (10, 2, 16, 1000, True, torch.float32, 1),     # 5 a group
+    (16, 1, 4, 1000, True, torch.float32, None),   # N = 4
+    (16, 2, 16, 1000, True, torch.bfloat16, 4),    # bf16 in
+    (24, 4, 16, 999, False, torch.bfloat16, 6),    # L % 8 != 0: the scalar loads and atomics
+])
+def test_backward_kernel_tiles_match_plain_on_card(dim, G, N, L, reverse, in_dtype, tile):
+    """K2 alone (K1's chunk states, then one K2 launch) against the plain
+    adjoint, at widths that take each tile of channels, with a ragged L.  A
+    tile of T channels is taken when T divides a group's channels and the
+    batch fills the card's SMs with one block each (one wave of T-channel
+    blocks walks no more channels per SM than any smaller tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    batch = 2
+    if tile is not None:
+        batch = torch.cuda.get_device_properties(0).multi_processor_count * tile // dim
+        assert bwd_tile_channels(batch, dim, G, N, in_dtype) == tile
+    x, dy = _scan_inputs("cuda", L=L, dim=dim, N=N, G=G, batch=batch)
+    for k in ("u", "delta", "B", "C"):
+        x[k] = x[k].to(in_dtype)
+    with torch.no_grad():
+        _, hchk = selective_scan_cuda(**x, delta_softplus=True, reverse=reverse,
+                                      chunk_states=True)
+        before = selective_scan_bwd_cuda.launches
+        got = selective_scan_bwd_cuda(*x.values(), dy, hchk, True, reverse)
+        torch.cuda.synchronize()
+        assert selective_scan_bwd_cuda.launches == before + 1
+        want = selective_scan_bwd_ref(*x.values(), dy, True, reverse)
+    for g, w in zip(got, want):
         scale = max(w.float().abs().max().item(), 1.0)
         tol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
         assert (g.float() - w.float()).abs().max().item() <= tol * scale

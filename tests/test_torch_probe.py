@@ -184,24 +184,35 @@ def test_trace_timed_and_device_profile_on_cpu(tmp_path):
     assert profiling.device_profile(lambda: x @ x, reps=2) is None
 
 
-def test_flops_report_params_match_jax():
+def test_flops_report_params_match_jax(tmp_path):
     """``--flops_report`` at full width: the parameter count equals JAX's
     exactly (from a shape trace of ``model.init``; no parameter's shape
     depends on the image size, so a 32x32 input traces faster), and the scan
-    term is the cost model's."""
+    term is the cost model's.  As in the JAX CLI the report comes first and
+    then ``--mode`` runs: here ``serve`` on a reference checkpoint of the
+    full-width model with an empty stdin, which prints READY and ends
+    without a forward."""
     from focalnet_tpu.models import build_net as jax_build_net
+    from focalnet_tpu_torch.models import build_net
+    from focalnet_tpu_torch.utils import save_checkpoint
 
     shapes = jax.eval_shape(jax_build_net("1mlp_g2").init,
                             {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 32, 32, 3)))
     want = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes))
+    ckpt = str(tmp_path / "Best.pkl")
+    save_checkpoint(ckpt, build_net("1mlp_g2", device="cpu").state_dict())
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        report = cli_main(["--flops_report", "--device", "cpu"])
+        report = cli_main(["--flops_report", "--mode", "serve", "--test_model", ckpt,
+                           "--result_dir", str(tmp_path / "out"), "--device", "cpu"],
+                          inp=io.StringIO(""))
     assert report["params"] == want
     scan = jax_flops.mimounet_scan_flops(JAX_PRESETS["1mlp_g2"], (256, 256))
     assert report["scan_flops"] == scan
     assert report["counted_flops"] > 0
-    lines = buf.getvalue().splitlines()
+    out = buf.getvalue().splitlines()
+    assert out[2:] == ["READY"]  # the report, then the mode
+    lines = out[:2]
     assert lines == [
         f"params: {want / 1e6:.3f}M",
         f"counted flops @256^2: {report['counted_flops'] / 1e9:.2f} GFLOPs"
