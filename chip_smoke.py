@@ -7,11 +7,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds every kernel of the port's main paths from the checkout's sources
 (the selective-scan forward and backward and the FMA-pass probe, one nvcc
-each, in parallel; and the backward kernel as of its baseline commit, to be
-timed beside it, when the checkout's history or ``_build/baseline/`` holds
-it), holds each against its plain PyTorch version at the main paths' shapes
-(the backward kernel at batch 1 and 4 and at every tile of channels it
-takes), runs the fp32 FMA-rate probe
+each, in parallel; and the forward and backward kernels as of their
+baseline commits, to be timed beside them, when the checkout's history or
+``_build/baseline/`` holds them), holds each against its plain PyTorch
+version at the main paths' shapes (both scan kernels at batch 1 and 4 and
+at every tile of channels they take), runs the fp32 FMA-rate probe
 (``python -m focalnet_tpu_torch.benchmarks.vpu_probe``) with launch counts,
 serves the full-width ``1mlp_g2`` dehazer through the CLI's ``--mode serve``
 (whole-image and ``--tile``) with kernel launch counts, compares the whole
@@ -99,11 +99,15 @@ def time_ms(fn, reps=20, warmup=3):
 def kernel_ms(fn, pattern):
     """A kernel's own device time per call of ``fn`` in ms: the profiled
     device events whose name holds ``pattern``, as the probe measures them
-    (:func:`focalnet_tpu_torch.benchmarks.vpu_probe.device_ms`).  Every
-    kernel's ``ms`` is taken this way."""
-    from focalnet_tpu_torch.benchmarks.vpu_probe import device_ms
+    (:func:`focalnet_tpu_torch.benchmarks.vpu_probe.device_ms`), for a
+    ``fn`` that launches one such kernel.  Every kernel's ``ms`` is taken
+    this way."""
+    from focalnet_tpu_torch.benchmarks.vpu_probe import TRACE_ATTEMPTS, device_ms
 
-    return device_ms(fn, pattern, torch.device("cuda"))
+    ms = device_ms(fn, pattern, torch.device("cuda"), per_call=1)
+    if not math.isfinite(ms):
+        fail(f"the profiler recorded no {pattern} kernel in {TRACE_ATTEMPTS} traces")
+    return ms
 
 
 def max_err(got, want, rtol, atol):
@@ -129,14 +133,21 @@ def scan_inputs(L, dim=192, N=16, dtype=torch.float32, seed=0, batch=1, groups=1
     return x, r(batch, dim, L)
 
 
-def bound(L, dim=192, N=16, in_bytes=4, out_bytes=4, accum=False):
-    """Least time (ms) for one scan call: bytes moved once at the memory rate
-    vs the 9*L*D*N (+L*D) fp32 operations at the fp32 rate."""
-    nbytes = (dim * L * (2 * in_bytes + out_bytes * (2 if accum else 1))
-              + 2 * N * L * in_bytes + (dim * N + 2 * dim) * 4)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = (9 * L * dim * N + L * dim) / PEAK_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def bound(L, clock_mhz, sms, dim=192, N=16, in_bytes=4, out_bytes=4, accum=False, batch=1,
+          chunk_states=False):
+    """Least time (ms) for one forward call: the larger of the bytes moved
+    once (u, delta, B, C in the input dtype, y and y_accum in the output
+    dtype, the chunk states, A, D, bias in fp32) at the memory rate, the
+    9*L*D*N + L*D fp32 operations per batch row at the fp32 rate, and the
+    exponentials' floor."""
+    n_chunks = -(-L // 256)
+    nbytes = (batch * (dim * L * (2 * in_bytes + out_bytes * (2 if accum else 1))
+                       + 2 * N * L * in_bytes + (dim * n_chunks * N * 4 if chunk_states else 0))
+              + (dim * N + 2 * dim) * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = batch * (9 * L * dim * N + L * dim) / PEAK_FP32_FLOPS * 1e3
+    t_sfu = batch * sfu_ms(L, clock_mhz, sms, dim, N)
+    return max(t_bytes, t_ops, t_sfu), "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
 
 
 def sfu_ms(L, clock_mhz, sms, dim=192, N=16):
@@ -171,16 +182,28 @@ def grad_err(got, want, rtol, atol):
     return float(diff.max()), ok
 
 
-def phase_kernel(scan, clock_mhz, sms):
-    """Kernel vs its plain version on the card at the path's shapes."""
+def phase_kernel(scan, fwd, fwd_ref_states, tile_of, launched_tile, baseline, clock_mhz, sms):
+    """K1 vs its plain version at the path's shapes: B = 1 and the train
+    step's B = 4, L = 16384, 4096, 1024, 1000, both directions, with and
+    without y_accum, fp32 and bf16 out (fp32 in), and bf16 in; its chunk
+    states vs chunk_states_ref at B = 1 and 4; then at widths and batches
+    that take each tile of channels (fails unless tiles of 1, 2, 3, 4 and 6
+    were all taken, each the tile the launch reports).  Then K1's own time
+    at B = 1 (serving) and B = 4 with chunk states (the train step's call)
+    vs the plain scan's and, when ``baseline`` (K1 before the channel
+    tiles) was built, vs its time, in turns (baseline, K1, K1, baseline)."""
+    from focalnet_tpu_torch.ops.selective_scan_cuda import launch_fwd
+
     worst = 0.0
-    cases = [(L, rev, acc, out, torch.float32)
-             for L in PATH_LS + (1000,) for rev in (False, True)
+    cases = [(batch, L, rev, acc, out, torch.float32)
+             for batch in (1, TRAIN_BATCH) for L in PATH_LS + (1000,) for rev in (False, True)
              for acc in (False, True) for out in (torch.float32, torch.bfloat16)]
-    cases += [(4096, rev, True, torch.float32, torch.bfloat16) for rev in (False, True)]
+    cases += [(batch, L, rev, True, out, torch.bfloat16) for batch in (1, TRAIN_BATCH)
+              for L in (4096, 1000) for rev in (False, True)
+              for out in (torch.float32, torch.bfloat16)]
     with torch.inference_mode():
-        for L, rev, acc, out, inp in cases:
-            x, yacc = scan_inputs(L, dtype=inp)
+        for batch, L, rev, acc, out, inp in cases:
+            x, yacc = scan_inputs(L, dtype=inp, batch=batch)
             kw = dict(delta_softplus=True, reverse=rev, out_dtype=out,
                       y_accum=yacc.to(out) if acc else None)
             got = scan(**x, backend="cuda", **kw)
@@ -188,43 +211,81 @@ def phase_kernel(scan, clock_mhz, sms):
             torch.cuda.synchronize()
             rtol, atol = TOLS[out]
             err, ok = max_err(got, want, rtol, atol)
-            emit(phase="kernel_vs_plain", L=L, reverse=rev, y_accum=acc,
-                 in_dtype=str(inp), out_dtype=str(out), max_abs_err=err,
-                 rtol=rtol, atol=atol, ok=ok)
+            emit(phase="kernel_vs_plain", batch=batch, L=L, reverse=rev, y_accum=acc,
+                 in_dtype=str(inp), out_dtype=str(out), tile=launched_tile(),
+                 max_abs_err=err, rtol=rtol, atol=atol, ok=ok)
             if not ok:
-                fail(f"kernel disagrees with the plain scan at L={L} reverse={rev} "
+                fail(f"kernel disagrees with the plain scan at B={batch} L={L} reverse={rev} "
                      f"y_accum={acc} in={inp} out={out}: max abs err {err}")
             if out == torch.float32:
                 worst = max(worst, err)
-        from focalnet_tpu_torch.ops.scan_bwd_ref import chunk_states_ref
-        from focalnet_tpu_torch.ops.selective_scan_cuda import selective_scan_cuda
-
-        for L in PATH_LS + (1000,):  # the chunk states the backward kernel reads
-            x, _ = scan_inputs(L)
+        # the chunk states the backward kernel reads
+        for batch in (1, TRAIN_BATCH):
+            for L in PATH_LS + (1000,):
+                x, _ = scan_inputs(L, batch=batch)
+                for rev in (False, True):
+                    _, hchk = fwd(**x, delta_softplus=True, reverse=rev, chunk_states=True)
+                    want = fwd_ref_states(x["u"], x["delta"], x["A"], x["B"],
+                                          x["delta_bias"], True, rev)
+                    torch.cuda.synchronize()
+                    err, ok = max_err(hchk, want, *TOLS[torch.float32])
+                    emit(phase="kernel_chunk_states", batch=batch, L=L, reverse=rev,
+                         tile=launched_tile(), max_abs_err=err, ok=ok)
+                    if not ok:
+                        fail(f"chunk states disagree at B={batch} L={L} reverse={rev}: {err}")
+                    worst = max(worst, err)
+        # widths that take each tile of T channels: T divides a group's
+        # channels and the batch fills the SMs with one wave of T-channel blocks
+        tiles = set()
+        for dim, T in ((12, 6), (16, 4), (18, 3), (20, 2), (10, 1)):  # 6, 8, 9, 10, 5 a group
+            batch = sms * T // dim
             for rev in (False, True):
-                _, hchk = selective_scan_cuda(**x, delta_softplus=True, reverse=rev,
-                                              chunk_states=True)
-                want = chunk_states_ref(x["u"], x["delta"], x["A"], x["B"],
-                                        x["delta_bias"], True, rev)
+                x, yacc = scan_inputs(1000, dim=dim, batch=batch, groups=2)
+                kw = dict(delta_softplus=True, reverse=rev, y_accum=yacc)
+                got, hchk = fwd(**x, chunk_states=True, **kw)
                 torch.cuda.synchronize()
-                err, ok = max_err(hchk, want, *TOLS[torch.float32])
-                emit(phase="kernel_chunk_states", L=L, reverse=rev, max_abs_err=err, ok=ok)
-                if not ok:
-                    fail(f"chunk states disagree at L={L} reverse={rev}: {err}")
-                worst = max(worst, err)
+                tile = launched_tile()
+                want = scan(**x, backend="chunked", **kw)
+                want_h = fwd_ref_states(x["u"], x["delta"], x["A"], x["B"], x["delta_bias"],
+                                        True, rev)
+                err, ok = max_err(got, want, *TOLS[torch.float32])
+                err_h, ok_h = max_err(hchk, want_h, *TOLS[torch.float32])
+                reported = tile_of(batch, dim, 2, 16)
+                emit(phase="kernel_tiles", batch=batch, dim=dim, groups=2, L=1000, reverse=rev,
+                     tile=tile, reported_tile=reported, max_abs_err=err,
+                     max_abs_err_chunk_states=err_h, ok=ok and ok_h)
+                if not (ok and ok_h) or tile != reported:
+                    fail(f"K1 at B={batch} D={dim} G=2 reverse={rev}: tile {tile} (reported "
+                         f"{reported}), max abs err {err} (y), {err_h} (chunk states)")
+                tiles.add(tile)
+                worst = max(worst, err, err_h)
+        if tiles != {1, 2, 3, 4, 6}:
+            fail(f"the forward kernel's checks took tiles {sorted(tiles)}, not 1, 2, 3, 4, 6")
         timing = {}
-        for L in PATH_LS:
-            x, yacc = scan_inputs(L)
-            for rev, acc in ((False, False), (True, True)):
-                kw = dict(delta_softplus=True, reverse=rev,
-                          y_accum=yacc if acc else None)
-                ms = kernel_ms(lambda: scan(**x, backend="cuda", **kw), "selective_scan_fwd")
-                plain = time_ms(lambda: scan(**x, backend="chunked", **kw))
-                b, by = bound(L, accum=acc)
-                sfu = 192 * 16 * L / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6) * 1e3
-                emit(phase="kernel_time", L=L, reverse=rev, y_accum=acc, ms=ms,
-                     plain_ms=plain, bound_ms=b, bound_by=by, sfu_exp_ms=sfu)
-                timing[(L, rev)] = (ms, plain, b, by)
+        for batch in (1, TRAIN_BATCH):
+            states = batch == TRAIN_BATCH  # the train step's forward writes them
+            for L in PATH_LS:
+                x, yacc = scan_inputs(L, batch=batch)
+                for rev, acc in ((False, False), (True, True)):
+                    kw = dict(delta_softplus=True, reverse=rev,
+                              y_accum=yacc if acc else None, chunk_states=states)
+                    base = lambda: kernel_ms(lambda: launch_fwd(baseline, **x, **kw),
+                                             "selective_scan_fwd")
+                    base_ms = [base()] if baseline else []
+                    ms = [kernel_ms(lambda: fwd(**x, **kw), "selective_scan_fwd")
+                          for _ in range(2)]
+                    base_ms += [base()] if baseline else []
+                    plain = time_ms(lambda: scan(**x, backend="chunked", delta_softplus=True,
+                                                 reverse=rev, y_accum=kw["y_accum"]),
+                                    reps=20 if batch == 1 else 5)
+                    b, by = bound(L, clock_mhz, sms, accum=acc, batch=batch,
+                                  chunk_states=states)
+                    emit(phase="kernel_time", batch=batch, L=L, reverse=rev, y_accum=acc,
+                         chunk_states=states, tile=tile_of(batch, 192), ms=ms,
+                         baseline_ms=base_ms or None, plain_ms=plain, bound_ms=b, bound_by=by,
+                         sfu_exp_ms=batch * sfu_ms(L, clock_mhz, sms))
+                    timing[(batch, L, rev)] = (statistics.mean(ms), plain, b, by,
+                                               statistics.mean(base_ms) if base_ms else None)
     return worst, timing
 
 
@@ -425,7 +486,7 @@ def phase_vpu_probe(counters, fma_cuda, bwd, fwd, peak_tflops):
         _, hchk = fwd(u, dl, A, Bm, Cm, delta_softplus=True, chunk_states=True)
         t_bwd = vpu_probe.device_ms(
             lambda: bwd(u, dl, A, Bm, Cm, None, None, dy, hchk, True, False),
-            "selective_scan_bwd", torch.device("cuda"))
+            "selective_scan_bwd", torch.device("cuda"), per_call=1)
     per_pass = (wide["probe_ms"][1] - wide["probe_ms"][0]) / (wide["passes"][1] - wide["passes"][0])
     emit(phase="vpu_probe", lines=lines, jax_pair=jax_pair, wide=wide,
          scan_bwd_device_ms=t_bwd, scan_bwd_pass_equivalents=t_bwd / per_pass,
@@ -586,14 +647,18 @@ def main():
     from focalnet_tpu_torch.ops.fma_passes import fma_passes_cuda, fma_passes_ref
     from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
     from focalnet_tpu_torch.ops.selective_scan import selective_scan
-    from focalnet_tpu_torch.benchmarks.scan_bwd_split import BASELINE_COMMIT, baseline_source
+    from focalnet_tpu_torch.benchmarks.scan_bwd_split import BASELINE_COMMITS, baseline_source
+    from focalnet_tpu_torch.ops.scan_bwd_ref import chunk_states_ref
     from focalnet_tpu_torch.ops.selective_scan_cuda import (
         SOURCE,
         SOURCE_BWD,
         bind_bwd,
+        bind_fwd,
         build,
         build_bwd,
         bwd_tile_channels,
+        fwd_launched_tile,
+        fwd_tile_channels,
         selective_scan_bwd_cuda,
         selective_scan_cuda,
     )
@@ -618,38 +683,44 @@ def main():
     # 2. build from the checkout's sources: one nvcc per kernel, in parallel
     def timed_build(fn):
         t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
+        lib = fn()
+        return time.perf_counter() - t0, lib
 
-    # K2 before the channel tiles, for its time beside K2's (not committed:
-    # from the checkout's history, or put under _build/baseline/ beforehand)
-    base_src = baseline_source()
+    # K1 and K2 before the channel tiles, for their times beside the kernels'
+    # (not committed: from the checkout's history, or put under
+    # _build/baseline/ beforehand)
+    base_src = {k: baseline_source(k) for k in ("fwd", "bwd")}
     builds = [(SOURCE, _build.CSRC_DIR, build), (SOURCE_BWD, _build.CSRC_DIR, build_bwd),
               (SOURCE_FMA, _build.CSRC_DIR, build_fma)]
-    if base_src:
-        base_dir = os.path.dirname(base_src)
-        builds.append((SOURCE_BWD, base_dir,
-                       lambda: bind_bwd(_build.load_library(SOURCE_BWD, base_dir))))
+    for k, path in base_src.items():
+        if path:
+            d, src = os.path.split(path)
+            bind = bind_fwd if k == "fwd" else bind_bwd
+            builds.append((src, d, lambda d=d, src=src, bind=bind: bind(_build.load_library(src, d))))
     prebuilt = [os.path.exists(_build.library_path(src, d)) for src, d, _ in builds]
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = [ex.submit(timed_build, fn) for _, _, fn in builds]
-        seconds = [f.result() for f in futures]
-    for (src, d, _), pre, secs in zip(builds, prebuilt, seconds):
+        results = [f.result() for f in futures]
+    for (src, d, _), pre, (secs, _) in zip(builds, prebuilt, results):
         lib_path = _build.library_path(src, d)
         with open(lib_path + ".log") as f:
             ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
         emit(phase="build", source=os.path.relpath(os.path.join(d, src), ROOT),
              seconds=secs, prebuilt=pre, library=os.path.relpath(lib_path, ROOT), ptxas=ptxas)
-    baseline = bind_bwd(_build.load_library(SOURCE_BWD, base_dir)) if base_src else None
-    emit(phase="k2_baseline", commit=BASELINE_COMMIT, built=baseline is not None,
-         note=None if base_src else "no history and no copy under _build/baseline/: "
-         "K2 is timed alone")
+    built = {os.path.join(d, src): lib for (src, d, _), (_, lib) in zip(builds, results)}
+    baselines = {k: built.get(path) for k, path in base_src.items()}
+    for k, path in base_src.items():
+        emit(phase="baseline", kernel=k, commit=BASELINE_COMMITS[k], built=path is not None,
+             note=None if path else "no history and no copy under _build/baseline/: "
+             f"the {k} kernel is timed alone")
 
     # 3. kernels vs plain, and times
-    worst, timing = phase_kernel(selective_scan, clock_mhz, sms)
+    worst, timing = phase_kernel(selective_scan, selective_scan_cuda, chunk_states_ref,
+                                 fwd_tile_channels, fwd_launched_tile, baselines["fwd"],
+                                 clock_mhz, sms)
     worst_bwd, timing_bwd = phase_kernel_bwd(
         selective_scan, selective_scan_cuda, selective_scan_bwd_cuda,
-        selective_scan_bwd_ref, bwd_tile_channels, baseline, clock_mhz, sms)
+        selective_scan_bwd_ref, bwd_tile_channels, baselines["bwd"], clock_mhz, sms)
 
     worst_fma, timing_fma = phase_kernel_probe(fma_passes_cuda, fma_passes_ref)
 
@@ -728,25 +799,23 @@ def main():
 
     print(card, flush=True)
     entries = []
-    for name, src, line, t, err, launches in (
-        ("selective_scan_fwd", SOURCE, 347, timing[(PATH_LS[0], False)], worst,
-         train_launches[0]),
-        ("selective_scan_bwd", SOURCE_BWD, 421, timing_bwd[(1, PATH_LS[0], False)], worst_bwd,
-         train_launches[1]),
+    for name, src, line, t, err, launches, tile_of in (
+        ("selective_scan_fwd", SOURCE, 347, timing, worst, train_launches[0], fwd_tile_channels),
+        ("selective_scan_bwd", SOURCE_BWD, 421, timing_bwd, worst_bwd, train_launches[1],
+         bwd_tile_channels),
     ):
-        ms, plain_ms, b, by = t[:4]
+        ms, plain_ms, b, by, base_ms = t[(1, PATH_LS[0], False)]
+        ms4, plain_ms4, b4, _, base_ms4 = t[(TRAIN_BATCH, PATH_LS[0], False)]
         entries.append(dict(
             name=name, route="cuda", source=f"focalnet_tpu_torch/ops/csrc/{src}",
             replaces=f"focalnet_tpu/ops/pallas_scan.py:{line}",
             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b, bound_by=by, library_ms=None,
             shape=f"B=1 D=192 N=16 L={PATH_LS[0]} fp32, forward direction",
+            ms_b4_l16384=ms4, plain_ms_b4_l16384=plain_ms4, bound_ms_b4_l16384=b4,
+            baseline_ms=base_ms, baseline_ms_b4_l16384=base_ms4,
+            tile_channels=tile_of(1, 192), tile_channels_b4=tile_of(TRAIN_BATCH, 192),
         ))
-    ms, plain_ms, b, by, base_ms = timing_bwd[(TRAIN_BATCH, PATH_LS[0], False)]
-    entries[1].update(ms_b4_l16384=ms, plain_ms_b4_l16384=plain_ms, bound_ms_b4_l16384=b,
-                      baseline_ms_b4_l16384=base_ms, baseline_ms=timing_bwd[(1, PATH_LS[0], False)][4],
-                      tile_channels_b4=bwd_tile_channels(TRAIN_BATCH, 192),
-                      tile_channels=bwd_tile_channels(1, 192))
     entries[0]["launches_serve_3_requests"] = serve_launches
     entries[0]["launches_vpu_probe"] = probe_launches["selective_scan_cuda"]
     P = 8 * PROBE_PATH_LOOPS[1]

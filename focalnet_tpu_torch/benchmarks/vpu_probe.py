@@ -38,6 +38,7 @@ from focalnet_tpu_torch.utils.profiling import parse_trace, trace
 
 LOOPS = (8, 64)  # P = 64 and 512 passes, the JAX probe's pair
 ITERS = 4  # traced calls per point, after two untraced ones
+TRACE_ATTEMPTS = 3  # traces taken at most when one holds none of the kernel's events
 
 
 def _sync(device):
@@ -45,24 +46,34 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def device_ms(fn, pattern: str, device):
+def device_ms(fn, pattern: str, device, per_call=None):
     """Device ms per call of ``fn()``: the trace's device events whose name
     holds ``pattern``, summed over :data:`ITERS` calls (after two untraced
-    ones) and divided by their number.  On the CPU there are no device
-    events, and this is 0."""
-    d = tempfile.mkdtemp(prefix=f"vpu_{pattern}_")
+    ones) and divided by their number.  With ``per_call`` (the kernels of
+    the pattern that one call launches), the mean event's time times
+    ``per_call`` instead, so that an event missing from the trace does not
+    read as a faster call, and a trace with none of them is taken again (NaN
+    after :data:`TRACE_ATTEMPTS`).  On the CPU there are no device events,
+    and this is 0."""
     fn()
     fn()
     _sync(device)
-    try:
-        with trace(d):
-            for _ in range(ITERS):
-                fn()
-            _sync(device)
-        r = parse_trace(d)
-        return sum(ms for name, ms, _, _ in r["ops"] if pattern in name) / ITERS
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+    for _ in range(TRACE_ATTEMPTS):
+        d = tempfile.mkdtemp(prefix=f"vpu_{pattern}_")
+        try:
+            with trace(d):
+                for _ in range(ITERS):
+                    fn()
+                _sync(device)
+            hits = [(ms, n) for name, ms, n, _ in parse_trace(d)["ops"] if pattern in name]
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        total, events = sum(ms for ms, _ in hits), sum(n for _, n in hits)
+        if per_call is None or device.type != "cuda":
+            return total / ITERS
+        if events:
+            return total / events * per_call
+    return float("nan")
 
 
 def probe_input(B, D, L, device):
@@ -101,7 +112,7 @@ def run_probe(B=4, D=192, L=16384, N=16, loops=LOOPS, device=None):
             return selective_scan(x[:, 0], dl, A, Bm, Cm, delta_softplus=True,
                                   backend=backend)
 
-    t_scan = device_ms(scan, "selective_scan_fwd", device)
+    t_scan = device_ms(scan, "selective_scan_fwd", device, per_call=1)
     floor = scan_flops(B, L, D, N, with_D=False) / (2 * B * L * D)
     out = dict(metric="scan_vpu_ceiling", scan_fwd_device_ms=None, probe_fma_tflops=None,
                pass_equivalents=None, cost_model_floor_passes=floor,

@@ -2,8 +2,9 @@
 interface, loaded with ctypes.
 
 Each source under ``ops/csrc`` becomes ``_build/lib<stem>_<hash>.so``; the
-hash covers the source and the flags, so a changed source is rebuilt at its
-next use and an unchanged one is loaded as it is.  Nothing is built when a
+hash covers the source, the headers of ``ops/csrc`` (every build may include
+them) and the flags, so a changed source or header is rebuilt at its next
+use and an unchanged one is loaded as it is.  Nothing is built when a
 module is imported: the first call that needs a kernel builds it.
 """
 
@@ -39,8 +40,11 @@ def find_nvcc() -> str:
 
 def library_path(source: str, csrc_dir: str = CSRC_DIR) -> str:
     """Where the library built from ``<csrc_dir>/<source>`` lives."""
-    with open(os.path.join(csrc_dir, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [os.path.join(csrc_dir, source)] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
@@ -55,7 +59,8 @@ def load_library(source: str, csrc_dir: str = CSRC_DIR) -> ctypes.CDLL:
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc_dir, source)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+               os.path.join(csrc_dir, source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -82,71 +82,14 @@
 // Exponentials: expf and log1pf, as in the forward kernel, so that the
 // rematerialised h matches the forward's to rounding.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
-
-constexpr int kNItems = 8;                         // consecutive items per lane
-constexpr int kChunk = 32 * kNItems;               // items per chunk (256)
-constexpr int kPad = kChunk + kChunk / kNItems;    // padded shared row
-constexpr int kMaxN = 16;                          // states: one warp each
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int sidx(int e) { return e + e / kNItems; }
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
-}
-
-// First position of the 8 contiguous positions that hold logical items
-// e0 .. e0 + 7 of the chunk starting at `base`.
-__device__ __forceinline__ int items_lo(int base, int e0, int reverse) {
-  return reverse ? base + kChunk - kNItems - e0 : base + e0;
-}
-
-// 8 consecutive values from 16-byte-aligned q, in memory order, in fp32
-// (fp32: two 16-byte loads; bf16: one)
-__device__ __forceinline__ void load8(const float* q, float w[kNItems]) {
-  const float4 x = reinterpret_cast<const float4*>(q)[0];
-  const float4 y = reinterpret_cast<const float4*>(q)[1];
-  w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
-  w[4] = y.x; w[5] = y.y; w[6] = y.z; w[7] = y.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* q, float w[kNItems]) {
-  const uint4 x = *reinterpret_cast<const uint4*>(q);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    w[2 * k] = f.x;
-    w[2 * k + 1] = f.y;
-  }
-}
-
-// Logical items e0 .. e0 + 7 of a staged chunk row (256 values in memory
-// order, 16-byte aligned) into v.
-template <typename T>
-__device__ __forceinline__ void chunk_items(const T* row, int e0, int reverse,
-                                            float v[kNItems]) {
-  float w[kNItems];
-  load8(row + items_lo(0, e0, reverse), w);
-#pragma unroll
-  for (int i = 0; i < kNItems; ++i) v[i] = reverse ? w[kNItems - 1 - i] : w[i];
 }
 
 // Adds logical items e0 .. e0 + 7 of v into a fp32 row (nothing past L), with
@@ -169,39 +112,6 @@ __device__ __forceinline__ void add_items(float* __restrict__ row, int base, int
       const int p = reverse ? lo + kNItems - 1 - i : lo + i;
       if (p < L) atomicAdd(row + p, v[i]);
     }
-  }
-}
-
-// cp.async: 16 bytes from global to shared memory without passing through
-// registers, the bytes past src_bytes zero-filled (src_bytes 0 reads nothing);
-// 4 bytes; the commit and the wait of this thread's copies.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// One 16-byte unit of a row of L elements, positions [p, p + 16 bytes), into
-// dst, zero past L: an asynchronous copy where `vec` says the row is aligned
-// for it, else plain loads and stores.
-template <typename T>
-__device__ __forceinline__ void stage_unit(T* dst, const T* __restrict__ row, int p, int L,
-                                           int vec) {
-  constexpr int E = 16 / sizeof(T);
-  if (vec) {
-    const int valid = min(max(L - p, 0), E);
-    cp_async16(dst, valid ? row + p : row, valid * (int)sizeof(T));
-  } else {
-#pragma unroll
-    for (int j = 0; j < E; ++j) dst[j] = p + j < L ? row[p + j] : from_f<T>(0.f);
   }
 }
 
@@ -474,10 +384,6 @@ selective_scan_bwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
   }
 }
 
-constexpr int kTiles[] = {1, 2, 3, 4, 6};  // channels per block that are built
-
-bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 template <typename InT>
 size_t smem_bytes(int T, int N) {
   const size_t floats = (size_t)(4 * N + 4 * T) * kPad + 2 * pad4(T * N) + 2 * T * 32 * N +
@@ -489,14 +395,8 @@ size_t smem_bytes(int T, int N) {
 // of it that fit on one SM (0 on error, with the error in *err).
 template <typename InT, int T>
 int prepare(int N, cudaError_t* err) {
-  auto kernel = selective_scan_bwd_kernel<InT, T>;
-  const size_t smem = smem_bytes<InT>(T, N);
-  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int blocks = 0;
-  if (*err == cudaSuccess) {
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * N, smem);
-  }
-  return *err == cudaSuccess ? blocks : 0;
+  return fit_blocks(selective_scan_bwd_kernel<InT, T>, 32 * N, smem_bytes<InT>(T, N),
+                    smem_bytes<InT>(T, kMaxN), err);
 }
 
 template <typename InT>
@@ -510,61 +410,13 @@ int prepare_tile(int T, int N, cudaError_t* err) {
   }
 }
 
-constexpr int kMaxDevices = 64;
+constexpr int kTiles[] = {1, 2, 3, 4, 6};  // channels per block that are built
 
-// prepare_tile once per device, N and T (the answer does not change), so
-// that a launch costs the host no more than a lookup
+// The tile rule's view of this kernel (scan_common.cuh, tile_channels)
 template <typename InT>
-int blocks_per_sm(int dev, int T, int N, cudaError_t* err) {
-  static int known[kMaxDevices][kMaxN + 1][7];  // blocks + 1; 0: not asked yet
-  *err = cudaSuccess;
-  int* k = dev < kMaxDevices ? &known[dev][N][T] : nullptr;
-  if (k && *k) return *k - 1;
-  const int blocks = prepare_tile<InT>(T, N, err);
-  if (k && *err == cudaSuccess) *k = blocks + 1;
-  return blocks;
-}
-
-int sm_count(int dev, cudaError_t* err) {
-  static int known[kMaxDevices];
-  *err = cudaSuccess;
-  if (dev < kMaxDevices && known[dev]) return known[dev];
-  int sms = 0;
-  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (dev < kMaxDevices && *err == cudaSuccess) known[dev] = sms;
-  return sms;
-}
-
-// Channels per block. Every block walks all of L, so the call takes about
-// (waves of blocks) x T channel walks, a walk being cheaper the more
-// channels share it; of the tiles that divide a group's channels, the one
-// with the fewest channel walks per SM slot, the largest on a tie. At the
-// train step's B = 4, dim 192, one group, on 132 SMs with one block each:
-// T = 6 (128 blocks, one wave); at B = 1: T = 2 (96 blocks).
-template <typename InT>
-int tile_channels(int batch, int dim, int groups, int N, cudaError_t* err) {
-  int dev = 0;
-  *err = cudaGetDevice(&dev);
-  const int sms = *err == cudaSuccess ? sm_count(dev, err) : 0;
-  if (*err != cudaSuccess) return 0;
-  const int per_group = dim / groups;
-  int best = 0;
-  long long best_walks = 0;
-  for (int T : kTiles) {
-    if (per_group % T != 0) continue;
-    const long long slots = (long long)sms * blocks_per_sm<InT>(dev, T, N, err);
-    if (*err != cudaSuccess) return 0;
-    if (slots == 0) continue;
-    const long long blocks = (long long)batch * (dim / T);
-    const long long walks = (blocks + slots - 1) / slots * T;
-    if (best == 0 || walks <= best_walks) {
-      best = T;
-      best_walks = walks;
-    }
-  }
-  if (best == 0) *err = cudaErrorInvalidConfiguration;  // no tile fits an SM
-  return best;
-}
+struct BwdTiles {
+  static int prepare(int T, int N, cudaError_t* err) { return prepare_tile<InT>(T, N, err); }
+};
 
 template <typename InT, int T>
 cudaError_t launch_tile(const void* u, const void* delta, const float* A, const void* B,
@@ -595,7 +447,7 @@ cudaError_t launch(const void* u, const void* delta, const float* A, const void*
                    float* dD, float* dbias, int batch, int dim, int groups, int N, int L,
                    int softplus, int reverse, cudaStream_t stream) {
   cudaError_t err;
-  const int T = tile_channels<InT>(batch, dim, groups, N, &err);
+  const int T = tile_channels<BwdTiles<InT>>(kTiles, batch, dim, groups, N, &err);
   if (err != cudaSuccess) return err;
 #define FOCALNET_LAUNCH_TILE(T)                                                             \
   launch_tile<InT, T>(u, delta, A, B, C, Dskip, bias, hchk, dy, du, ddelta, dA, dB, dC, dD,   \
@@ -624,8 +476,9 @@ int focalnet_selective_scan_bwd_tile(int batch, int dim, int groups, int dstate,
     return -static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
-  const int T = in_bf16 ? tile_channels<__nv_bfloat16>(batch, dim, groups, dstate, &err)
-                        : tile_channels<float>(batch, dim, groups, dstate, &err);
+  const int T = in_bf16
+                    ? tile_channels<BwdTiles<__nv_bfloat16>>(kTiles, batch, dim, groups, dstate, &err)
+                    : tile_channels<BwdTiles<float>>(kTiles, batch, dim, groups, dstate, &err);
   return err == cudaSuccess ? T : -static_cast<int>(err);
 }
 

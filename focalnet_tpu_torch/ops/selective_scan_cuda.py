@@ -29,10 +29,9 @@ SOURCE_BWD = "selective_scan_bwd.cu"
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-@functools.cache
-def build() -> ctypes.CDLL:
-    """Build (at first use) and bind the forward kernel's library."""
-    lib = load_library(SOURCE)
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from a forward-kernel
+    source (this one, or another version of it for a comparison)."""
     fn = lib.focalnet_selective_scan_fwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -40,6 +39,17 @@ def build() -> ctypes.CDLL:
     lib.focalnet_selective_scan_max_dstate.restype = ctypes.c_int
     lib.focalnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.focalnet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def build() -> ctypes.CDLL:
+    """Build (at first use) and bind the forward kernel's library."""
+    lib = bind_fwd(load_library(SOURCE))
+    lib.focalnet_selective_scan_fwd_tile.argtypes = [ctypes.c_int] * 6
+    lib.focalnet_selective_scan_fwd_tile.restype = ctypes.c_int
+    lib.focalnet_selective_scan_fwd_last_tile.argtypes = []
+    lib.focalnet_selective_scan_fwd_last_tile.restype = ctypes.c_int
     return lib
 
 
@@ -65,11 +75,30 @@ def build_bwd() -> ctypes.CDLL:
     return lib
 
 
+def fwd_tile_channels(batch: int, dim: int, groups: int = 1, dstate: int = 16,
+                      dtype=torch.float32, out_dtype=torch.float32) -> int:
+    """The channels one block of the forward kernel takes for operands of
+    these widths on the current CUDA device, as its launch chooses them
+    (``csrc/scan_common.cuh``, ``tile_channels``)."""
+    t = build().focalnet_selective_scan_fwd_tile(
+        batch, dim, groups, dstate, int(dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16))
+    if t <= 0:
+        msg = build().focalnet_cuda_error_string(-t).decode()
+        raise RuntimeError(f"selective_scan_fwd: no tile for these widths: {msg} ({-t})")
+    return t
+
+
+def fwd_launched_tile() -> int:
+    """The tile of channels that the forward kernel's last launch took."""
+    return build().focalnet_selective_scan_fwd_last_tile()
+
+
 def bwd_tile_channels(batch: int, dim: int, groups: int = 1, dstate: int = 16,
                       dtype=torch.float32) -> int:
     """The channels one block of the backward kernel takes for operands of
     these widths on the current CUDA device, as its launch chooses them
-    (``csrc/selective_scan_bwd.cu``, ``tile_channels``)."""
+    (``csrc/scan_common.cuh``, ``tile_channels``)."""
     t = build_bwd().focalnet_selective_scan_bwd_tile(
         batch, dim, groups, dstate, int(dtype == torch.bfloat16))
     if t <= 0:
@@ -142,8 +171,23 @@ def selective_scan_cuda(u, delta, A, B, C, D=None, delta_bias=None,
         _check(not chunk_states, "chunk_states is for the backward kernel's "
                "caller, which runs without autograd")
         return selective_scan(u, delta, A, B, C, backend="cuda", **kw)
+    out = launch_fwd(build(), u, delta, A, B, C, D, delta_bias, delta_softplus, reverse,
+                     y_accum, out_dtype, chunk_states)
+    selective_scan_cuda.launches += 1
+    return out
+
+
+selective_scan_cuda.launches = 0
+
+
+def launch_fwd(lib, u, delta, A, B, C, D=None, delta_bias=None, delta_softplus=False,
+               reverse=False, y_accum=None, out_dtype=torch.float32, chunk_states=False):
+    """Check the operands of :func:`selective_scan_cuda` on the card,
+    allocate y (and the chunk states) and launch the kernel of ``lib`` (a
+    library bound by :func:`bind_fwd`) once on the current stream; raises if
+    the launch fails.  Counts nothing: the wrapper does."""
     batch, dim, G, N, L = _check_operands(
-        u, delta, A, B, C, D, delta_bias, build().focalnet_selective_scan_max_dstate())
+        u, delta, A, B, C, D, delta_bias, lib.focalnet_selective_scan_max_dstate())
     _check(out_dtype in _DTYPES, f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     _check(y_accum is None or (y_accum.shape == u.shape and y_accum.dtype == out_dtype
                                and y_accum.device == u.device and y_accum.is_contiguous()),
@@ -155,7 +199,7 @@ def selective_scan_cuda(u, delta, A, B, C, D=None, delta_bias=None,
         n_chunks = -(-L // KERNEL_CHUNK)
         hchk = torch.empty(batch, dim, n_chunks, N, dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
-        rc = build().focalnet_selective_scan_fwd(
+        rc = lib.focalnet_selective_scan_fwd(
             _ptr(u), _ptr(delta), _ptr(A), _ptr(B), _ptr(C), _ptr(D), _ptr(delta_bias),
             _ptr(y_accum), _ptr(y), _ptr(hchk), batch, dim, G, N, L, int(delta_softplus),
             int(reverse), int(u.dtype == torch.bfloat16),
@@ -163,13 +207,9 @@ def selective_scan_cuda(u, delta, A, B, C, D=None, delta_bias=None,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     if rc != 0:
-        msg = build().focalnet_cuda_error_string(rc).decode()
+        msg = lib.focalnet_cuda_error_string(rc).decode()
         raise RuntimeError(f"selective_scan_fwd launch failed: {msg} ({rc})")
-    selective_scan_cuda.launches += 1
     return (y, hchk) if chunk_states else y
-
-
-selective_scan_cuda.launches = 0
 
 
 def selective_scan_bwd_cuda(u, delta, A, B, C, D, delta_bias, dy, hchk,

@@ -18,9 +18,11 @@ from focalnet_tpu_torch.main import main
 from focalnet_tpu_torch.models import build_net
 from focalnet_tpu_torch.ops import selective_scan
 from focalnet_tpu_torch.ops.fma_passes import fma_passes_cuda, fma_passes_ref
-from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
+from focalnet_tpu_torch.ops.scan_bwd_ref import chunk_states_ref, selective_scan_bwd_ref
 from focalnet_tpu_torch.ops.selective_scan_cuda import (
     bwd_tile_channels,
+    fwd_launched_tile,
+    fwd_tile_channels,
     selective_scan_bwd_cuda,
     selective_scan_cuda,
 )
@@ -119,6 +121,52 @@ def test_kernel_matches_plain_on_card(reverse, out_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim,G,N,L,reverse,in_dtype,out_dtype,tile", [
+    (192, 1, 16, 1024, False, torch.float32, torch.float32, None),  # the model's width
+    (12, 2, 16, 1000, True, torch.float32, torch.float32, 6),       # 6 channels a group
+    (16, 2, 16, 1000, False, torch.float32, torch.float32, 4),      # 8 a group
+    (18, 2, 16, 1000, True, torch.float32, torch.float32, 3),       # 9 a group
+    (20, 2, 16, 1000, False, torch.float32, torch.float32, 2),      # 10 a group
+    (10, 2, 16, 1000, True, torch.float32, torch.float32, 1),       # 5 a group
+    (16, 1, 4, 1000, True, torch.float32, torch.float32, None),     # N = 4
+    (16, 2, 16, 1000, False, torch.bfloat16, torch.bfloat16, 4),    # bf16 in and out
+    (24, 4, 16, 999, True, torch.bfloat16, torch.float32, 6),       # L % 8 != 0: plain loads
+    (24, 4, 16, 999, False, torch.float32, torch.bfloat16, 6),
+])
+def test_forward_kernel_tiles_match_plain_on_card(dim, G, N, L, reverse, in_dtype, out_dtype,
+                                                  tile):
+    """K1 alone, with y_accum and chunk states, against the plain scan and
+    chunk_states_ref, at widths that take each tile of channels, both
+    directions, bf16 in and out and a ragged L; the launch takes the tile
+    that fwd_tile_channels reports.  A tile of T channels is taken when T
+    divides a group's channels and the batch fills the card's SMs with one
+    block each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    batch = 2
+    if tile is not None:
+        batch = torch.cuda.get_device_properties(0).multi_processor_count * tile // dim
+        assert fwd_tile_channels(batch, dim, G, N, in_dtype, out_dtype) == tile
+    x, yacc = _scan_inputs("cuda", L=L, dim=dim, N=N, G=G, batch=batch)
+    for k in ("u", "delta", "B", "C"):
+        x[k] = x[k].to(in_dtype)
+    kw = dict(delta_softplus=True, reverse=reverse, y_accum=yacc.to(out_dtype),
+              out_dtype=out_dtype)
+    with torch.no_grad():
+        before = selective_scan_cuda.launches
+        got, hchk = selective_scan_cuda(**x, chunk_states=True, **kw)
+        torch.cuda.synchronize()
+        assert selective_scan_cuda.launches == before + 1
+        assert fwd_launched_tile() == fwd_tile_channels(batch, dim, G, N, in_dtype, out_dtype)
+        want = selective_scan(**x, backend="chunked", **kw)
+        want_h = chunk_states_ref(x["u"], x["delta"], x["A"], x["B"], x["delta_bias"], True,
+                                  reverse)
+    tol = dict(rtol=6e-4, atol=2e-3) if out_dtype == torch.float32 else dict(rtol=3e-2, atol=5e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(hchk, want_h, rtol=6e-4, atol=2e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_backward_kernel_matches_plain_on_card(reverse, in_dtype):
@@ -186,6 +234,27 @@ def test_backward_kernel_tiles_match_plain_on_card(dim, G, N, L, reverse, in_dty
         scale = max(w.float().abs().max().item(), 1.0)
         tol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_kernels_take_n16_after_n4_on_card():
+    """K1 and K2 at N = 16, then N = 4, then N = 16 again on the same widths
+    (the same tile) against their plain versions: the first use at a
+    smaller N must not leave the kernels too little shared memory for the
+    larger one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    for N in (16, 4, 16):
+        x, dy = _scan_inputs("cuda", L=1000, dim=16, N=N, G=1)
+        with torch.no_grad():
+            y, hchk = selective_scan_cuda(**x, delta_softplus=True, chunk_states=True)
+            got = selective_scan_bwd_cuda(*x.values(), dy, hchk, True, False)
+            torch.cuda.synchronize()
+            want_y = selective_scan(**x, delta_softplus=True, backend="chunked")
+            want = selective_scan_bwd_ref(*x.values(), dy, True, False)
+        torch.testing.assert_close(y, want_y, rtol=6e-4, atol=2e-3)
+        for g, w in zip(got, want):
+            assert (g - w).abs().max().item() <= 1e-3 * max(w.abs().max().item(), 1.0)
 
 
 @pytest.mark.cuda
