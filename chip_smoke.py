@@ -15,11 +15,17 @@ at every tile of channels they take), runs the fp32 FMA-rate probe
 (``python -m focalnet_tpu_torch.benchmarks.vpu_probe``) with launch counts,
 serves the full-width ``1mlp_g2`` dehazer through the CLI's ``--mode serve``
 (whole-image and ``--tile``) with kernel launch counts, compares the whole
-forward and the whole gradient on the kernels with the plain scans, times
-and profiles a batch-4 256x256 train step, and trains through the CLI's
-``--mode train`` for 2 epochs on a synthetic dataset and resumes for a third,
-with launch counts.  Each phase prints one JSON line; any failed check exits
-non-zero before the last line, which is ``{"ok": true, "device": {...}}``.
+forward (256x256 and 480x640) and the whole gradient on the kernels with the
+plain scans, runs the CLI's ``--mode test`` on a synthetic SOTS-indoor-sized
+test split (460x620) on the kernel and on the plain scan and ``--mode
+infer`` on a directory of mixed sizes (batch 1, batch 2, ``--tile``) with
+launch counts, times and profiles a batch-4 256x256 train step, and trains
+through the CLI's ``--mode train`` for 2 epochs on a synthetic dataset and
+resumes for a third, with launch counts and the log scraper on its log.  K1
+is also held against its plain version, and timed, at the eval slice's scan
+lengths (76800, 19200, 4800).  Each phase prints one JSON line; any failed
+check exits non-zero before the last line, which is ``{"ok": true,
+"device": {...}}``.
 Weights are random, from a seed: no trained checkpoint is in the repository.
 """
 
@@ -30,6 +36,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -54,6 +61,10 @@ GRAD_TOLS = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 MODEL_GRAD_TOL = (1e-3, 1e-5)
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias", "dy_accum")
 PATH_LS = (16384, 4096, 1024)  # scan lengths of a 256x256 forward
+# SOTS-indoor's 460x620 images, padded to 480x640: the eval slice's lengths
+SOTS_HW = (460, 620)
+EVAL_LS = (76800, 19200, 4800)
+EVAL_BATCHES = (1, 2)          # --mode test and infer; infer at --valid_batch 2
 LAUNCHES_PER_FORWARD = 48      # 12 SS2D x 4 directions
 TRAIN_BATCH = 4
 # the FMA-pass probe: its check shape, its (and the JAX probe's) shape, and
@@ -289,6 +300,50 @@ def phase_kernel(scan, fwd, fwd_ref_states, tile_of, launched_tile, baseline, cl
     return worst, timing
 
 
+def phase_kernel_eval(scan, fwd, tile_of, launched_tile, clock_mhz, sms):
+    """K1 vs its plain version at the eval slice's lengths (a 480x640
+    forward: 76800, 19200 and 4800, the last not a multiple of the 256-item
+    chunk), B = 1 and 2, forward, and reverse with y_accum, fp32, under
+    TOLS, and against a second call of itself, bitwise (its sums run in a
+    fixed order); then its own time per call there beside the plain scan's
+    and the bound."""
+    worst, timing = 0.0, {}
+    rtol, atol = TOLS[torch.float32]
+    with torch.inference_mode():
+        for batch in EVAL_BATCHES:
+            for L in EVAL_LS:
+                x, yacc = scan_inputs(L, batch=batch)
+                for rev, acc in ((False, False), (True, True)):
+                    kw = dict(delta_softplus=True, reverse=rev, y_accum=yacc if acc else None)
+                    got = fwd(**x, **kw)
+                    torch.cuda.synchronize()
+                    tile = launched_tile()
+                    repeat = bool(torch.equal(got, fwd(**x, **kw)))
+                    want = scan(**x, backend="chunked", **kw)
+                    err, ok = max_err(got, want, rtol, atol)
+                    emit(phase="kernel_vs_plain", batch=batch, L=L, reverse=rev, y_accum=acc,
+                         in_dtype=str(torch.float32), out_dtype=str(torch.float32), tile=tile,
+                         reported_tile=tile_of(batch, 192), max_abs_err=err, rtol=rtol,
+                         atol=atol, repeat_bitwise=repeat, ok=ok)
+                    if not ok or tile != tile_of(batch, 192) or not repeat:
+                        fail(f"K1 at the eval length L={L} B={batch} reverse={rev}: tile {tile}, "
+                             f"max abs err {err}, a second call bitwise equal: {repeat}")
+                    worst = max(worst, err)
+                    del got, want
+                    ms = [kernel_ms(lambda: fwd(**x, **kw), "selective_scan_fwd")
+                          for _ in range(2)]
+                    plain = time_ms(lambda: scan(**x, backend="chunked", **kw), reps=5, warmup=1)
+                    b, by = bound(L, clock_mhz, sms, accum=acc, batch=batch)
+                    emit(phase="kernel_time", batch=batch, L=L, reverse=rev, y_accum=acc,
+                         chunk_states=False, tile=tile, ms=ms, baseline_ms=None,
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         sfu_exp_ms=batch * sfu_ms(L, clock_mhz, sms))
+                    timing[(batch, L, rev)] = (statistics.mean(ms), plain, b, by)
+                del x, yacc
+                torch.cuda.empty_cache()
+    return worst, timing
+
+
 def bwd_vs_plain(scan, L, rev, acc, inp, batch=1, dim=192, groups=1):
     """K2 vs its plain version through the autograd Function (the forward
     kernel with chunk states, then the backward kernel) against the plain
@@ -372,6 +427,40 @@ def phase_kernel_bwd(scan, fwd, bwd, bwd_ref, tile_of, baseline, clock_mhz, sms)
                     timing[(batch, L, rev)] = (statistics.mean(ms), plain, b, by,
                                                statistics.mean(base_ms) if base_ms else None)
     return worst, timing
+
+
+def phase_forward(name, profile, model, plain, hw, rng, counter, card, smi, reps, plain_reps):
+    """The whole full-width forward on a batch-1 image of ``hw`` on the
+    kernel vs on the plain scan: its 3 outputs under MODEL_TOL, 48 K1
+    launches, whether a second forward gives the same bits (reported),
+    ms by CUDA events (medians of ``reps`` and ``plain_reps``);
+    then the device profile of 5 forwards by kind.  Returns the launches."""
+    img = rng.integers(0, 256, (1, *hw, 3), dtype=np.uint8)
+    x = torch.from_numpy(img).cuda().float() / 255.0
+    with torch.inference_mode():
+        counter.launches = 0
+        got = model(x)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        repeat = all(torch.equal(a, b) for a, b in zip(got, model(x)))
+        want = plain(x)
+        errs = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            err, ok = max_err(g, w, *MODEL_TOL)
+            errs.append(err)
+            if not ok:
+                fail(f"{name}: forward output {i}, kernel vs plain max abs err {err}")
+        if launches != LAUNCHES_PER_FORWARD:
+            fail(f"{name}: one forward launched the kernel {launches} times")
+        del got, want
+        fwd_ms = time_ms(lambda: model(x), reps=reps)
+        plain_ms = time_ms(lambda: plain(x), reps=plain_reps, warmup=1 if plain_reps < 20 else 3)
+        emit(phase=name, shape=[1, *hw, 3], rtol=MODEL_TOL[0], atol=MODEL_TOL[1],
+             max_abs_err=errs, launches=launches, repeat_bitwise=repeat, ms=fwd_ms,
+             plain_ms=plain_ms,
+             card=card, after=smi("clocks.sm,power.draw,temperature.gpu"))
+        phase_profile(profile, lambda: model(x), reps=5)
+    return launches
 
 
 def phase_profile(name, fn, reps):
@@ -568,7 +657,8 @@ def phase_train_cli(cli_main, counters, tmp):
     make_synthetic_dataset(data, n_train=4, n_test=1, hw=(256, 256), seed=0)
     common = ["--mode", "train", "--data_dir", data, "--batch_size", str(TRAIN_BATCH),
               "--crop_size", "256", "--print_freq", "1", "--save_freq", "1",
-              "--valid_freq", "1", "--num_worker", "4", "--model_save_dir", out]
+              "--valid_freq", "1", "--num_worker", "4", "--model_save_dir", out,
+              "--result_dir", os.path.join(tmp, "train_images")]
     runs = []
     for epochs, extra in ((2, []), (3, ["--resume", os.path.join(out, "model.pkl")])):
         for c in counters:
@@ -607,9 +697,184 @@ def phase_train_cli(cli_main, counters, tmp):
     losses = [(r["pixel_loss"], r["fft_loss"]) for r in rows if "step" in r]
     if len(losses) != 6 or not all(math.isfinite(v) for r in losses for v in r):
         fail(f"train losses: {losses}")
+    # the log scraper on train.log: a PSNR point per validated epoch (all
+    # three, the resumed one appended) and a loss record per printed step
+    from focalnet_tpu_torch.utils.plot_logs import parse_log
+
+    curves = parse_log(os.path.join(out, "train.log"))
     emit(phase="train_cli_result", steps=len(losses), losses=losses,
-         psnr=[r["psnr"] for r in rows if "psnr" in r], checkpoints=names)
+         psnr=[r["psnr"] for r in rows if "psnr" in r], checkpoints=names,
+         log_psnr=curves["psnr"], log_loss_records=len(curves["content"]))
+    if [e for e, _ in curves["psnr"]] != [1.0, 2.0, 3.0]:
+        fail(f"parse_log found PSNR points {curves['psnr']}, want epochs 1, 2, 3")
+    if len(curves["content"]) != len(losses) or len(curves["fft"]) != len(losses):
+        fail(f"parse_log found {len(curves['content'])} loss records, want {len(losses)}")
     return runs[0]
+
+
+def _eval_lines(text):
+    """--mode test's per-image (PSNR_dehazing, ssim) pairs and its three
+    summary lines, in the reference eval.py's formats."""
+    per_image = [(float(a), float(b)) for a, b in
+                 re.findall(r"^\d+ iter PSNR_dehazing: (\d+\.\d{2}) ssim: (\d+\.\d{6})$",
+                            text, re.M)]
+    summary = re.findall(r"^(The average PSNR is \d+\.\d{2} dB|The average SSIM is "
+                         r"\d+\.\d{5} dB|Average time: \d+\.\d{6})$", text, re.M)
+    return per_image, summary
+
+
+def phase_test_cli(cli_main, counters, tmp, ckpt, card):
+    """``--mode test --save_image`` through the CLI at full width on a
+    synthetic SOTS-indoor-sized test split (3 GTs, 2 hazy images each, at
+    460x620), on the kernel and then on the plain scan (``--scan_backend
+    chunked``): per-image PSNR within 0.01 dB, SSIM within 1e-4 (as
+    printed), saved PNGs within 1 LSB; 48 K1 launches per image, none of K2.
+    Returns the kernel run's K1 launches."""
+    from focalnet_tpu_torch.data.png import read_png
+    from focalnet_tpu_torch.data.reside import make_synthetic_dataset
+
+    data = make_synthetic_dataset(os.path.join(tmp, "sots"), n_train=2, n_test=3,
+                                  hw=SOTS_HW, seed=0)
+    n_images = len(os.listdir(os.path.join(data, "test", "hazy")))
+    runs = {}
+    for backend in ("cuda", "chunked"):
+        res_dir = os.path.join(tmp, f"test_{backend}")
+        for c in counters:
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = cli_main(["--mode", "test", "--save_image", "--data_dir", data,
+                               "--test_model", ckpt, "--result_dir", res_dir,
+                               "--model_save_dir", os.path.join(tmp, "test_cfg"),
+                               "--scan_backend", backend])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+        per_image, summary = _eval_lines(buf.getvalue())
+        expected = [LAUNCHES_PER_FORWARD * n_images, 0] if backend == "cuda" else [0, 0]
+        emit(phase="test_cli", backend=backend, images=n_images, per_image=per_image,
+             summary=summary, result=result, seconds=seconds, launches_fwd=launches[0],
+             launches_bwd=launches[1], expected_launches=expected, card=card)
+        if launches != expected:
+            fail(f"--mode test on {backend}: launches (K1, K2) {launches}, expected {expected}")
+        if len(per_image) != n_images or len(summary) != 3:
+            fail(f"--mode test on {backend} printed {len(per_image)} per-image lines and "
+                 f"summary {summary}: want {n_images} and the three summary lines")
+        if not all(math.isfinite(v) for v in result.values()):
+            fail(f"--mode test on {backend}: {result}")
+        names = sorted(os.listdir(res_dir))
+        if names != sorted(os.listdir(os.path.join(data, "test", "hazy"))):
+            fail(f"--mode test on {backend} saved {names}")
+        runs[backend] = (per_image, result, res_dir, names, launches[0])
+    (k_img, k_res, k_dir, names, k_launches), (p_img, p_res, p_dir, _, _) = (
+        runs["cuda"], runs["chunked"])
+    d_psnr = max(abs(a[0] - b[0]) for a, b in zip(k_img, p_img))
+    d_ssim = max(abs(a[1] - b[1]) for a, b in zip(k_img, p_img))
+    d_png = max(int(np.abs(read_png(os.path.join(k_dir, n)).astype(int)
+                           - read_png(os.path.join(p_dir, n)).astype(int)).max())
+                for n in names)
+    emit(phase="test_cli_vs_plain", max_psnr_diff_db=d_psnr, max_ssim_diff=d_ssim,
+         max_png_diff_lsb=d_png, psnr=[k_res["psnr"], p_res["psnr"]],
+         ssim=[k_res["ssim"], p_res["ssim"]], average_time_s=k_res["time"],
+         plain_average_time_s=p_res["time"], card=card)
+    # printed to 2 decimals: a true difference below 0.005 dB shows as at most 0.01
+    if not (d_psnr <= 0.01 + 1e-9 and d_ssim <= 1e-4 + 1e-12 and d_png <= 1
+            and abs(k_res["psnr"] - p_res["psnr"]) <= 0.01
+            and abs(k_res["ssim"] - p_res["ssim"]) <= 1e-4):
+        fail(f"--mode test, kernel vs plain: PSNR {d_psnr} dB, SSIM {d_ssim}, PNG {d_png} LSB")
+    print(f"--mode test at {SOTS_HW[0]}x{SOTS_HW[1]}: Average time: {k_res['time']:.6f} s "
+          f"(kernel), {p_res['time']:.6f} s (plain scan); {card}", flush=True)
+    return k_res["time"], k_launches
+
+
+def _tile_forwards(hw, tile=256, overlap=32, batch=4):
+    """Forwards of ``--tile`` inference on an image of ``hw`` (padded up to
+    the tile where smaller): its tiles, ``batch`` per forward."""
+    from focalnet_tpu_torch.evaluation.infer import _tile_starts
+
+    h, w = max(hw[0], tile), max(hw[1], tile)
+    n = len(_tile_starts(h, tile, tile - overlap)) * len(_tile_starts(w, tile, tile - overlap))
+    return -(-n // batch)
+
+
+def phase_infer_cli(cli_main, counters, tmp, ckpt, rng):
+    """``--mode infer`` through the CLI at full width on a directory of five
+    PNGs (two 460x620, two 256x256, one 250x310) at ``--valid_batch`` 1 and
+    2, at 1 again (is a second run bitwise equal?) and at ``--tile 256
+    --valid_batch 4``, with K1 launch counts (48 per
+    forward; batch 2 makes one forward per padded shape, three here); batch
+    2 against batch 1 and batch 1 against ``--mode serve`` for the same
+    files, within 1 LSB.  Returns the batch-1 run's K1 launches."""
+    from focalnet_tpu_torch.data.png import read_png, write_png
+
+    sizes = [SOTS_HW, SOTS_HW, (256, 256), (256, 256), (250, 310)]
+    src = os.path.join(tmp, "infer_in")
+    os.makedirs(src)
+    for i, (h, w) in enumerate(sizes):
+        write_png(os.path.join(src, f"img{i}_{h}x{w}.png"),
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    names = sorted(os.listdir(src))
+    hw = {f"img{i}_{h}x{w}.png": (h, w) for i, (h, w) in enumerate(sizes)}
+    runs = {}
+    for mode, extra, forwards in (
+        ("batch1", ["--valid_batch", "1"], len(sizes)),
+        ("batch2", ["--valid_batch", "2"], 3),
+        ("batch1_again", ["--valid_batch", "1"], len(sizes)),
+        ("tile_256", ["--tile", "256", "--valid_batch", "4"],
+         sum(_tile_forwards(s) for s in sizes)),
+    ):
+        out_dir = os.path.join(tmp, f"infer_{mode}")
+        for c in counters:
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = cli_main(["--mode", "infer", "--input", src, "--test_model", ckpt,
+                               "--result_dir", out_dir,
+                               "--model_save_dir", os.path.join(tmp, "infer_cfg")] + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+        expected = [LAUNCHES_PER_FORWARD * forwards, 0]
+        emit(phase="infer_cli", mode=mode, images=len(sizes), result=result,
+             printed=buf.getvalue().strip().splitlines()[-1:], seconds=seconds,
+             launches_fwd=launches[0], launches_bwd=launches[1], expected_launches=expected)
+        if launches != expected:
+            fail(f"--mode infer {mode}: launches (K1, K2) {launches}, expected {expected}")
+        if sorted(os.listdir(out_dir)) != names:
+            fail(f"--mode infer {mode} wrote {sorted(os.listdir(out_dir))}, want {names}")
+        imgs = {n: read_png(os.path.join(out_dir, n)) for n in names}
+        for n, img in imgs.items():
+            if img.shape != (*hw[n], 3):
+                fail(f"--mode infer {mode}: {n} has shape {img.shape}, want {(*hw[n], 3)}")
+        runs[mode] = (imgs, launches[0])
+
+    # the same files through --mode serve, whole image
+    serve_dir = os.path.join(tmp, "infer_serve")
+    for c in counters:
+        c.launches = 0
+    _, launches, _, expected = serve_run(cli_main, ckpt, [(os.path.join(src, n), hw[n])
+                                                          for n in names],
+                                         serve_dir, [], counters[0], len(names))
+    if launches != expected:
+        fail(f"--mode serve on the infer inputs: {launches} K1 launches, expected {expected}")
+    served = {n: read_png(os.path.join(serve_dir, n)) for n in names}
+
+    def lsb(a, b):
+        return max(int(np.abs(a[n].astype(int) - b[n].astype(int)).max()) for n in names)
+
+    def bitwise(a, b):
+        return all(np.array_equal(a[n], b[n]) for n in names)
+
+    b1, b2 = runs["batch1"][0], runs["batch2"][0]
+    d_b2, d_serve = lsb(b2, b1), lsb(b1, served)
+    emit(phase="infer_cli_vs", batch2_vs_batch1_lsb=d_b2, batch2_bitwise=bitwise(b2, b1),
+         batch1_vs_serve_lsb=d_serve, serve_bitwise=bitwise(b1, served),
+         batch1_again_bitwise=bitwise(runs["batch1_again"][0], b1))
+    if d_b2 > 1 or d_serve > 1:
+        fail(f"--mode infer: batch 2 vs batch 1 {d_b2} LSB, batch 1 vs serve {d_serve} LSB")
+    return runs["batch1"][1]
 
 
 def serve_run(main, ckpt, requests, out_dir, extra, ss_cuda, expect_forwards):
@@ -619,7 +884,8 @@ def serve_run(main, ckpt, requests, out_dir, extra, ss_cuda, expect_forwards):
     out = io.StringIO()
     ss_cuda.launches = 0
     t0 = time.perf_counter()
-    main(["--mode", "serve", "--test_model", ckpt, "--result_dir", out_dir] + extra,
+    main(["--mode", "serve", "--test_model", ckpt, "--result_dir", out_dir,
+          "--model_save_dir", os.path.join(out_dir, "cfg")] + extra,
          inp=io.StringIO(req), out=out)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -718,6 +984,10 @@ def main():
     worst, timing = phase_kernel(selective_scan, selective_scan_cuda, chunk_states_ref,
                                  fwd_tile_channels, fwd_launched_tile, baselines["fwd"],
                                  clock_mhz, sms)
+    worst_eval, timing_eval = phase_kernel_eval(selective_scan, selective_scan_cuda,
+                                                fwd_tile_channels, fwd_launched_tile,
+                                                clock_mhz, sms)
+    worst = max(worst, worst_eval)
     worst_bwd, timing_bwd = phase_kernel_bwd(
         selective_scan, selective_scan_cuda, selective_scan_bwd_cuda,
         selective_scan_bwd_ref, bwd_tile_channels, baselines["bwd"], clock_mhz, sms)
@@ -763,33 +1033,21 @@ def main():
             if mode == "whole_image":
                 serve_launches = launches
 
-        # 6. whole forward, kernel vs plain scan, on the card
+        # 6. whole forward, kernel vs plain scan, on the card: 256x256, and
+        # 480x640 (SOTS-indoor's 460x620 padded: the eval slice's shape)
         plain = build_net("1mlp_g2", device="cuda", scan_backend="chunked")
         plain.load_state_dict(model.state_dict(), strict=True)
-        img = rng.integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
-        x = torch.from_numpy(img).cuda().float() / 255.0
-        with torch.inference_mode():
-            selective_scan_cuda.launches = 0
-            got = model(x)
-            torch.cuda.synchronize()
-            fwd_launches = selective_scan_cuda.launches
-            want = plain(x)
-            errs = []
-            for i, (g, w) in enumerate(zip(got, want)):
-                err, ok = max_err(g, w, *MODEL_TOL)
-                errs.append(err)
-                if not ok:
-                    fail(f"forward output {i}: kernel vs plain max abs err {err}")
-            if fwd_launches != LAUNCHES_PER_FORWARD:
-                fail(f"one forward launched the kernel {fwd_launches} times")
-            fwd_ms = time_ms(lambda: model(x))
-            plain_ms = time_ms(lambda: plain(x))
-            emit(phase="forward_256", rtol=MODEL_TOL[0], atol=MODEL_TOL[1],
-                 max_abs_err=errs, launches=fwd_launches, ms=fwd_ms, plain_ms=plain_ms,
-                 card=card, after=smi("clocks.sm,power.draw,temperature.gpu"))
-            phase_profile("profile", lambda: model(x), reps=5)
-        del model, plain, got, want
+        phase_forward("forward_256", "profile", model, plain, (256, 256), rng,
+                      selective_scan_cuda, card, smi, reps=20, plain_reps=20)
+        fwd640_launches = phase_forward("forward_640", "profile_640", model, plain, (480, 640),
+                                        rng, selective_scan_cuda, card, smi, reps=10,
+                                        plain_reps=3)
+        del model, plain
         torch.cuda.empty_cache()
+
+        # 6b. --mode test (SOTS-indoor protocol) and --mode infer through the CLI
+        test_avg_time, test_launches = phase_test_cli(cli_main, counters, tmp, ckpt, card)
+        infer_launches = phase_infer_cli(cli_main, counters, tmp, ckpt, rng)
 
         # 7. whole gradient and train step at batch 4, 256x256
         phase_grad(build_net, counters, card)
@@ -817,6 +1075,13 @@ def main():
             tile_channels=tile_of(1, 192), tile_channels_b4=tile_of(TRAIN_BATCH, 192),
         ))
     entries[0]["launches_serve_3_requests"] = serve_launches
+    entries[0]["launches_forward_640"] = fwd640_launches
+    entries[0]["launches_test_cli"] = test_launches
+    entries[0]["launches_infer_cli_batch1"] = infer_launches
+    entries[0]["eval_lengths"] = [
+        dict(batch=b, L=L, reverse=rev, ms=t[0], plain_ms=t[1], bound_ms=t[2], bound_by=t[3])
+        for (b, L, rev), t in sorted(timing_eval.items())]
+    entries[0]["test_cli_average_time_s"] = test_avg_time
     entries[0]["launches_vpu_probe"] = probe_launches["selective_scan_cuda"]
     P = 8 * PROBE_PATH_LOOPS[1]
     ms, plain_ms, b, by = timing_fma[P]

@@ -78,6 +78,7 @@ class TrainConfig:
     num_worker: int = 8
     save_freq: int = 10
     valid_freq: int = 10
+    valid_batch: int = 1  # images per validation forward (same metrics)
     crop_size: int = 256
     seed: int = 1234
     model_save_dir: str = "results/weights"

@@ -7,6 +7,7 @@ neither.
 - :func:`decode_png`: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced,
   all five scanline filters, CRC-checked.  Returns (H, W, channels) uint8.
 - :func:`encode_png`: 8-bit gray, RGB or RGBA; every row with filter 0.
+- :func:`read_png_size`: (H, W) from the header alone.
 """
 
 from __future__ import annotations
@@ -120,6 +121,16 @@ def encode_png(img: np.ndarray, level: int = 1) -> bytes:
     return (_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
             + _chunk(b"IEND", b""))
+
+
+def read_png_size(path: str):
+    """(H, W) of a PNG file from its IHDR chunk, without decoding it."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
 
 
 def read_png(path: str) -> np.ndarray:

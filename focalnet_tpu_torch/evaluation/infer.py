@@ -1,16 +1,95 @@
-"""Tiled (chop) inference (counterpart of ``focalnet_tpu/evaluation/infer.py``).
+"""Inference on images without ground truth (counterpart of
+``focalnet_tpu/evaluation/infer.py``).
 
-Serve's ``--tile`` mode: every image runs as overlapping (tile, tile) crops,
-feather-blended back together, so device memory is bounded by the tile.  The
-directory-wide ``infer()`` arrives with the eval slice (ROADMAP).
+``infer()`` is ``--mode infer``: it dehazes an image or a directory of
+images into ``result_dir``, whole images (reflect-padded to a multiple of
+``factor``, cropped back, clamped, saved with the +0.5/255 offset) or
+``tile`` crops.  One thread decodes the next item and one encodes earlier
+answers while the card computes.  :func:`tiled_forward` is also serve's
+``--tile`` mode: overlapping (tile, tile) crops, feather-blended back
+together, so device memory is bounded by the tile.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
+import torch
+
+from focalnet_tpu_torch.data.png import read_png_size
+from focalnet_tpu_torch.data.reside import _load_image_u8, pil_image
+from focalnet_tpu_torch.evaluation.metrics import pad_to_multiple, save_image
+from focalnet_tpu_torch.utils.device import resolve_device
+from focalnet_tpu_torch.utils.meters import Adder
+
+_EXTS = (".png", ".jpg", ".jpeg")
+
+
+def _list_images(path: str) -> List[str]:
+    """``path`` itself if it is a file, else its png/jpg/jpeg files, sorted."""
+    if os.path.isfile(path):
+        return [path]
+    return sorted(os.path.join(path, f) for f in os.listdir(path)
+                  if f.lower().endswith(_EXTS))
+
+
+def _pipeline(items, decode_fn, run_fn, save_cap: int):
+    """Run ``run_fn(decode_fn(item), saver)`` over ``items`` while one thread
+    decodes the next item and one thread runs the writes that ``run_fn``
+    hands to ``saver.submit``.  At most ``save_cap`` writes wait (each holds
+    a full-size prediction), so an encode error surfaces near its cause;
+    every write's error is raised."""
+    save_futs = []
+
+    class _Saver:
+        def __init__(self, ex, max_pending):
+            self.ex = ex
+            self.max_pending = max(2, max_pending)
+
+        def submit(self, *a):
+            save_futs.append(self.ex.submit(*a))
+            while len(save_futs) > self.max_pending:
+                save_futs.pop(0).result()
+
+    with ThreadPoolExecutor(1) as loader, ThreadPoolExecutor(1) as saver:
+        sv = _Saver(saver, save_cap)
+        pending = None
+        for it in items:
+            nxt = loader.submit(decode_fn, it)
+            if pending is not None:
+                run_fn(pending.result(), sv)
+            pending = nxt
+        if pending is not None:
+            run_fn(pending.result(), sv)
+    for f in save_futs:
+        f.result()
+
+
+def u8_forward(model, device: torch.device):
+    """``fwd``: (B, H, W, 3) uint8 array -> the full-size output of ``model``
+    on ``device``, a tensor there.  The upload is uint8 and x/255 runs on the
+    device: a quarter of the float traffic."""
+
+    def fwd(x_u8: np.ndarray) -> torch.Tensor:
+        with torch.inference_mode():
+            x = torch.from_numpy(x_u8).to(device).float() / 255.0
+            return model(x)[2]
+
+    return fwd
+
+
+def _image_hw(path: str):
+    """(H, W) from the image's header: a PNG's IHDR, other formats by PIL."""
+    if path.lower().endswith(".png"):
+        return read_png_size(path)
+    with pil_image(path).open(path) as im:
+        w, h = im.size
+    return h, w
 
 
 def _tile_starts(size: int, tile: int, stride: int) -> List[int]:
@@ -83,3 +162,88 @@ def tiled_forward(fwd_batch, img: np.ndarray, tile: int, overlap: int,
     while pending:
         blend(*pending.popleft())
     return out / wsum
+
+
+def infer(model, input_path: str, result_dir: str, factor: int = 32,
+          batch_size: int = 1, tile: int = 0, tile_overlap: int = 32,
+          device=None) -> dict:
+    """Dehaze every image under ``input_path`` (a file or a directory) into
+    ``result_dir`` with ``model`` (a MIMOUNet) on ``device`` (default: the
+    CUDA card; without one this raises).  Returns {"count", "avg_time"}.
+
+    ``batch_size > 1`` groups the files by padded shape (from their headers)
+    and runs up to ``batch_size`` of one shape per forward; a partial group
+    is filled up by repeating its last image, whose extra output is
+    dropped.  ``factor`` (a multiple of 32) is the padding multiple: a
+    coarser one makes fewer distinct shapes.  ``tile`` (a multiple of 32, 0
+    = whole images) runs every image as overlapping (tile, tile) crops
+    (:func:`tiled_forward`), ``batch_size`` of them per forward.
+
+    An image's time runs from the upload to the prediction on the host (a
+    batch's divided by its images), so it holds the forward on the card."""
+    device = resolve_device(device)
+    model = model.to(device).eval()
+    fwd = u8_forward(model, device)
+    os.makedirs(result_dir, exist_ok=True)
+    files = _list_images(input_path)
+    if not files:
+        raise FileNotFoundError(f"no images under {input_path!r}")
+    time_adder = Adder()
+
+    def save(pred, path, h, w):
+        save_image(np.clip(pred[:h, :w], 0.0, 1.0),
+                   os.path.join(result_dir, os.path.basename(path)))
+
+    if tile:
+        if tile % 32:
+            raise ValueError(f"--tile must be a multiple of 32, got {tile}")
+        if not 0 <= tile_overlap < tile:
+            raise ValueError(f"--tile_overlap must be in [0, tile), got {tile_overlap}")
+        bs = max(batch_size, 1)
+
+        def decode_one(path):
+            img = _load_image_u8(path)
+            h, w = img.shape[:2]
+            return path, _pad_to_min(img, tile, tile), h, w
+
+        def run_tiled(item, saver):
+            path, img, h, w = item
+            tm = time.time()
+            pred = tiled_forward(fwd, img, tile, tile_overlap, bs)
+            time_adder(time.time() - tm)
+            saver.submit(save, pred, path, h, w)
+
+        _pipeline(files, decode_one, run_tiled, save_cap=4)
+    else:
+        if batch_size <= 1:
+            path_batches = [[p] for p in files]
+        else:
+            by_shape: dict = {}
+            for path in files:
+                h, w = _image_hw(path)
+                key = (-(-h // factor) * factor, -(-w // factor) * factor)
+                by_shape.setdefault(key, []).append(path)
+            path_batches = [group[i : i + batch_size] for group in by_shape.values()
+                            for i in range(0, len(group), batch_size)]
+
+        def decode(paths):
+            batch = []
+            for path in paths:
+                padded, (h, w) = pad_to_multiple(_load_image_u8(path)[None], factor)
+                batch.append((path, padded, h, w))
+            return batch
+
+        def run(batch, saver):
+            n = len(batch)
+            stack = [b[1] for b in batch] + [batch[-1][1]] * (max(batch_size, 1) - n)
+            tm = time.time()
+            preds = fwd(np.concatenate(stack, axis=0)).cpu().numpy()[:n]
+            time_adder((time.time() - tm) / n)
+            for pred, (path, _, h, w) in zip(preds, batch):
+                saver.submit(save, pred, path, h, w)
+
+        _pipeline(path_batches, decode, run, save_cap=2 * max(batch_size, 1))
+
+    print("Dehazed %d images -> %s (avg %.3fs/img)" % (
+        len(files), result_dir, time_adder.average()))
+    return {"count": len(files), "avg_time": time_adder.average()}

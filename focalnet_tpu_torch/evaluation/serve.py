@@ -23,10 +23,9 @@ import time
 from typing import List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from focalnet_tpu_torch.data.reside import _load_image_u8
-from focalnet_tpu_torch.evaluation.infer import _pad_to_min, tiled_forward
+from focalnet_tpu_torch.evaluation.infer import _pad_to_min, tiled_forward, u8_forward
 from focalnet_tpu_torch.evaluation.metrics import pad_to_multiple, save_image
 from focalnet_tpu_torch.utils.device import resolve_device
 from focalnet_tpu_torch.utils.meters import Adder
@@ -48,11 +47,7 @@ def serve(model, result_dir: str, factor: int = 32, tile: int = 0,
     out = out if out is not None else sys.stdout
     os.makedirs(result_dir, exist_ok=True)
 
-    def fwd(x_u8: np.ndarray) -> torch.Tensor:
-        # uint8 upload, x/255 on the device: a quarter of the float traffic
-        with torch.inference_mode():
-            x = torch.from_numpy(x_u8).to(device).float() / 255.0
-            return model(x)[2]
+    fwd = u8_forward(model, device)
 
     def respond(*fields):
         out.write("\t".join(fields) + "\n")

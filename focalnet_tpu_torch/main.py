@@ -2,14 +2,17 @@
 
 Usage:
     python -m focalnet_tpu_torch.main --data_dir dataset/ITS    # --mode train
+    python -m focalnet_tpu_torch.main --mode test --test_model <reference .pkl> [--save_image]
+    python -m focalnet_tpu_torch.main --mode infer --input <image or dir> --test_model <pkl>
     python -m focalnet_tpu_torch.main --mode serve --test_model <reference .pkl>
     python -m focalnet_tpu_torch.main --flops_report --mode serve
 
 The defaults are the JAX CLI's: ``--mode train``, ``--test_model
 results/weights/Best.pkl`` (the reference-format counterpart of JAX's Orbax
 ``results/weights/Best``); ``--flops_report`` prints its report and then
-runs ``--mode``.  Test and infer follow in a later slice (ROADMAP).  Runs on
-the CUDA card unless ``--device cpu``.
+runs ``--mode``.  Every mode writes the model and train configs to
+``<model_save_dir>/config.json`` and makes ``--result_dir``, as the JAX CLI
+does.  Runs on the CUDA card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -25,14 +28,15 @@ import torch
 
 
 def main(argv=None, inp=None, out=None):
-    """Parse ``argv`` and run; ``inp``/``out`` replace stdin/stdout.  Returns
-    the report's numbers under ``--flops_report``, else what the mode
-    returns."""
+    """Parse ``argv`` and run; ``inp``/``out`` replace stdin/stdout (serve).
+    Returns the report's numbers under ``--flops_report``, else what the
+    mode returns."""
     args = parse_args(argv)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
+    from focalnet_tpu_torch.configs import PRESETS, TrainConfig
     from focalnet_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device or None)
@@ -43,30 +47,62 @@ def main(argv=None, inp=None, out=None):
         overrides["ssm_d_state"] = args.ssm_d_state
     if args.scan_backend:
         overrides["scan_backend"] = args.scan_backend
+    train_cfg = TrainConfig(
+        data_dir=args.data_dir, batch_size=args.batch_size,
+        learning_rate=args.learning_rate, num_epoch=args.num_epoch,
+        grad_accum=args.grad_accum, print_freq=args.print_freq,
+        num_worker=args.num_worker, save_freq=args.save_freq,
+        valid_freq=args.valid_freq, valid_batch=args.valid_batch,
+        crop_size=args.crop_size, seed=args.seed,
+        model_save_dir=args.model_save_dir,
+    )
+    os.makedirs(args.model_save_dir, exist_ok=True)
+    os.makedirs(args.result_dir, exist_ok=True)
+    with open(os.path.join(args.model_save_dir, "config.json"), "w") as f:
+        json.dump({"model": dataclasses.asdict(PRESETS[args.preset].replace(**overrides)),
+                   "train": dataclasses.asdict(train_cfg)}, f, indent=2)
     report = _flops_report(args.preset, device, overrides) if args.flops_report else None
-    result = _run_mode(args, device, overrides, inp, out)
+    result = _run_mode(args, train_cfg, device, overrides, inp, out)
     return report if report is not None else result
 
 
-def _run_mode(args, device, overrides, inp, out):
-    """``--mode train`` or ``--mode serve``."""
+def _run_mode(args, train_cfg, device, overrides, inp, out):
+    """``--mode train``, ``test``, ``infer`` or ``serve``."""
     from focalnet_tpu_torch.models import build_net
 
     if args.mode == "train":
-        return _train(args, build_net(
-            args.preset, device=device,
-            generator=torch.Generator().manual_seed(args.seed), **overrides))
+        from focalnet_tpu_torch.train import train
 
-    from focalnet_tpu_torch.evaluation.serve import serve
+        model = build_net(args.preset, device=device,
+                          generator=torch.Generator().manual_seed(args.seed), **overrides)
+        return train(model, train_cfg, resume=args.resume or None,
+                     log_file=os.path.join(args.model_save_dir, "train.log"))
+
     from focalnet_tpu_torch.utils.convert import load_checkpoint
 
     if not args.test_model:
-        raise SystemExit("error: --mode serve needs --test_model")
-    if args.pad_factor % 32 or args.pad_factor <= 0:
+        raise SystemExit(f"error: --mode {args.mode} needs --test_model")
+    if args.mode == "infer" and not args.input:
+        raise SystemExit("error: --mode infer needs --input <image file or directory>")
+    if args.mode != "test" and (args.pad_factor % 32 or args.pad_factor <= 0):
         raise SystemExit("error: --pad_factor must be a positive multiple of 32")
-
     model = build_net(args.preset, device=device, **overrides)
     model.load_state_dict(load_checkpoint(args.test_model), strict=True)
+
+    if args.mode == "test":
+        from focalnet_tpu_torch.evaluation.evaluator import evaluate
+
+        return evaluate(model, args.data_dir, result_dir=args.result_dir,
+                        save_images=args.save_image)
+    if args.mode == "infer":
+        from focalnet_tpu_torch.evaluation.infer import infer
+
+        return infer(model, args.input, args.result_dir, factor=args.pad_factor,
+                     batch_size=args.valid_batch, tile=args.tile,
+                     tile_overlap=args.tile_overlap, device=device)
+
+    from focalnet_tpu_torch.evaluation.serve import serve
+
     warm = []
     for tok in filter(None, args.warm_shapes.split(",")):
         h, _, w = tok.lower().partition("x")
@@ -97,45 +133,33 @@ def _flops_report(preset, device, overrides):
     return dict(params=n_params, counted_flops=flops, scan_flops=scan)
 
 
-def _train(args, model):
-    """``--mode train``: the config is written beside the checkpoints."""
-    from focalnet_tpu_torch.configs import TrainConfig
-    from focalnet_tpu_torch.train import train
-
-    cfg = TrainConfig(
-        data_dir=args.data_dir, batch_size=args.batch_size,
-        learning_rate=args.learning_rate, num_epoch=args.num_epoch,
-        grad_accum=args.grad_accum, print_freq=args.print_freq,
-        num_worker=args.num_worker, save_freq=args.save_freq,
-        valid_freq=args.valid_freq, crop_size=args.crop_size, seed=args.seed,
-        model_save_dir=args.model_save_dir,
-    )
-    os.makedirs(cfg.model_save_dir, exist_ok=True)
-    with open(os.path.join(cfg.model_save_dir, "config.json"), "w") as f:
-        json.dump({"model": dataclasses.asdict(model.cfg),
-                   "train": dataclasses.asdict(cfg)}, f, indent=2)
-    return train(model, cfg, resume=args.resume or None,
-                 log_file=os.path.join(cfg.model_save_dir, "train.log"))
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="focalnet_tpu_torch")
     p.add_argument("--preset", type=str, default="1mlp_g2", choices=["1mlp_g2"])
-    p.add_argument("--mode", type=str, default="train", choices=["serve", "train"])
+    p.add_argument("--mode", type=str, default="train",
+                   choices=["train", "test", "infer", "serve"])
+    p.add_argument("--input", type=str, default="",
+                   help="--mode infer: an image file or a directory of images")
     p.add_argument("--test_model", type=str, default="results/weights/Best.pkl",
-                   help="--mode serve: reference-format .pkl ({'model': "
-                        "state_dict, ...})")
+                   help="--mode test, infer, serve: reference-format .pkl "
+                        "({'model': state_dict, ...})")
+    p.add_argument("--save_image", action="store_true",
+                   help="--mode test: save the predictions under --result_dir")
     p.add_argument("--result_dir", type=str, default="results/images",
-                   help="where answers go when a request names no output path")
+                   help="where --mode test and infer save images, and serve's "
+                        "answers go when a request names no output path")
     p.add_argument("--pad_factor", type=int, default=32,
-                   help="reflect-pad H, W up to multiples of this (multiple of 32)")
+                   help="--mode infer, serve: reflect-pad H, W up to multiples "
+                        "of this (multiple of 32); test and validation keep 32")
     p.add_argument("--tile", type=int, default=0,
-                   help="chop mode: overlapping (tile, tile) crops, multiple of "
-                        "32; 0 = whole-image")
+                   help="--mode infer, serve: overlapping (tile, tile) crops, "
+                        "multiple of 32; 0 = whole-image")
     p.add_argument("--tile_overlap", type=int, default=32,
                    help="overlap in pixels between adjacent --tile crops")
     p.add_argument("--valid_batch", type=int, default=1,
-                   help="--tile mode: tiles per forward")
+                   help="images per forward in validation and --mode infer "
+                        "(same-size images; same outputs), tiles per forward "
+                        "with --tile; the reference protocol is batch 1")
     p.add_argument("--warm_shapes", type=str, default="",
                    help="comma list of HxW sizes forwarded once before READY")
     # train (the reference's defaults)

@@ -3,9 +3,10 @@
 The reference recipe: multiscale L1 + 0.1 FFT loss, ``clip_grad_norm_(0.001)``
 before every step of Adam (lr 1e-4, betas 0.9/0.999, eps 1e-8, no weight
 decay), the per-epoch warm-up + cosine learning rate, rolling / periodic /
-best / final checkpoints, batch-1 validation at epoch 1 and every
-``valid_freq`` epochs, and stdout lines in the reference's log-scraper
-formats (``Time: ... Epoch: ... Iter: ...``, ``EPOCH: ...``, ``Average PSNR``).
+best / final checkpoints, validation (``valid_batch`` images a forward) at
+epoch 1 and every ``valid_freq`` epochs, and stdout lines in the reference's
+log-scraper formats (``Time: ... Epoch: ... Iter: ...``, ``EPOCH: ...``,
+``Average PSNR``).
 
 The model trains in ``train()`` mode: DropPath and Dropout draw from one
 generator on the card, seeded from ``seed`` and the step index at every
@@ -170,7 +171,7 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
             epoch_fft.reset()
 
             if epoch_idx % cfg.valid_freq == 0 or epoch_idx == 1:
-                val = validate(model, cfg.data_dir)
+                val = validate(model, cfg.data_dir, batch_size=cfg.valid_batch)
                 log("%03d epoch \n Average PSNR %.2f dB" % (epoch_idx, val))
                 log_metric(epoch=epoch_idx, psnr=val)
                 if val >= best_psnr:

@@ -167,6 +167,30 @@ def test_forward_kernel_tiles_match_plain_on_card(dim, G, N, L, reverse, in_dtyp
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("L", [76800, 4800])
+def test_forward_kernel_at_eval_lengths_on_card(L, batch):
+    """K1 at the model's widths and two scan lengths of a 480x640 forward
+    (SOTS-indoor's 460x620, padded): 76800, and 4800, which is not a
+    multiple of the 256-item chunk.  Forward, and reverse with y_accum,
+    against the plain scan; the launch takes the tile fwd_tile_channels
+    reports."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, yacc = _scan_inputs("cuda", L=L, dim=192, N=16, G=1, batch=batch)
+    for reverse, acc in ((False, None), (True, yacc)):
+        kw = dict(delta_softplus=True, reverse=reverse, y_accum=acc)
+        with torch.no_grad():
+            before = selective_scan_cuda.launches
+            got = selective_scan_cuda(**x, **kw)
+            torch.cuda.synchronize()
+            assert selective_scan_cuda.launches == before + 1
+            assert fwd_launched_tile() == fwd_tile_channels(batch, 192, 1, 16)
+            want = selective_scan(**x, backend="chunked", **kw)
+        torch.testing.assert_close(got, want, rtol=6e-4, atol=2e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_backward_kernel_matches_plain_on_card(reverse, in_dtype):

@@ -204,7 +204,8 @@ def test_flops_report_params_match_jax(tmp_path):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         report = cli_main(["--flops_report", "--mode", "serve", "--test_model", ckpt,
-                           "--result_dir", str(tmp_path / "out"), "--device", "cpu"],
+                           "--result_dir", str(tmp_path / "out"), "--device", "cpu",
+                           "--model_save_dir", str(tmp_path / "w")],
                           inp=io.StringIO(""))
     assert report["params"] == want
     scan = jax_flops.mimounet_scan_flops(JAX_PRESETS["1mlp_g2"], (256, 256))

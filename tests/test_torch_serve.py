@@ -88,7 +88,7 @@ def test_cli_serves_tiles(tmp_path):
     (path,) = _requests(tmp_path, [(48, 64)], seed=1)
     argv = ["--mode", "serve", "--test_model", ckpt, "--device", "cpu",
             "--vssg_dim", "16", "--ssm_d_state", "4", "--tile", "32",
-            "--tile_overlap", "8"]
+            "--tile_overlap", "8", "--model_save_dir", str(tmp_path / "w")]
     (img,) = _run(lambda **kw: main(argv + ["--result_dir", kw["result_dir"]],
                                     inp=kw["inp"], out=kw["out"]),
                   [path], str(tmp_path / "tiled"))
