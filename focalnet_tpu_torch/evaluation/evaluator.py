@@ -55,9 +55,8 @@ def validate(model, data_dir: str, factor: int = 32, batch_size: int = 1) -> flo
 
     ``batch_size > 1`` stacks images of one padded shape into one forward,
     with the same metrics: a bucket is run when it is full or the next
-    image's padded shape differs, and a partial bucket is filled up by
-    repeating its last image, whose extra PSNR is dropped.  The reference
-    protocol is batch 1."""
+    image's padded shape differs, and a partial bucket runs at its own
+    size.  The reference protocol is batch 1."""
     psnr_adder = Adder()
     print("Start Validation...")
     buf = []  # (padded, h, w, gt), one padded shape
@@ -66,9 +65,7 @@ def validate(model, data_dir: str, factor: int = 32, batch_size: int = 1) -> flo
         def flush():
             if not buf:
                 return
-            n = len(buf)
-            stack = [b[0] for b in buf] + [buf[-1][0]] * (batch_size - n)
-            preds = fwd(np.concatenate(stack, axis=0))[:n]
+            preds = fwd(np.concatenate([b[0] for b in buf], axis=0))
             for pred, (_, h, w, gt) in zip(preds, buf):
                 psnr_adder(psnr_skimage(np.clip(pred[:h, :w], 0.0, 1.0), gt[0]))
             buf.clear()

@@ -173,8 +173,7 @@ def infer(model, input_path: str, result_dir: str, factor: int = 32,
 
     ``batch_size > 1`` groups the files by padded shape (from their headers)
     and runs up to ``batch_size`` of one shape per forward; a partial group
-    is filled up by repeating its last image, whose extra output is
-    dropped.  ``factor`` (a multiple of 32) is the padding multiple: a
+    runs at its own size.  ``factor`` (a multiple of 32) is the padding multiple: a
     coarser one makes fewer distinct shapes.  ``tile`` (a multiple of 32, 0
     = whole images) runs every image as overlapping (tile, tile) crops
     (:func:`tiled_forward`), ``batch_size`` of them per forward.
@@ -234,11 +233,9 @@ def infer(model, input_path: str, result_dir: str, factor: int = 32,
             return batch
 
         def run(batch, saver):
-            n = len(batch)
-            stack = [b[1] for b in batch] + [batch[-1][1]] * (max(batch_size, 1) - n)
             tm = time.time()
-            preds = fwd(np.concatenate(stack, axis=0)).cpu().numpy()[:n]
-            time_adder((time.time() - tm) / n)
+            preds = fwd(np.concatenate([b[1] for b in batch], axis=0)).cpu().numpy()
+            time_adder((time.time() - tm) / len(batch))
             for pred, (path, _, h, w) in zip(preds, batch):
                 saver.submit(save, pred, path, h, w)
 

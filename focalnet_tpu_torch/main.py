@@ -179,7 +179,10 @@ def parse_args(argv=None):
     p.add_argument("--crop_size", type=int, default=256)
     p.add_argument("--resume", type=str, default="",
                    help="rolling checkpoint (model.pkl) to continue from")
-    p.add_argument("--model_save_dir", type=str, default="results/weights")
+    p.add_argument("--model_save_dir", type=str, default="results/weights",
+                   help="checkpoints, train.log and config.json; every mode "
+                        "(test, infer and serve too) writes config.json here, "
+                        "over a training run's")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--flops_report", action="store_true",
                    help="print params and GFLOPs at 256x256, then run --mode")

@@ -66,6 +66,19 @@ def _port_fwd(model):
     return fwd
 
 
+class _PerImage(torch.nn.Module):
+    """``model`` run one image of the batch at a time: batch-invariant."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.train(model.training)
+
+    def forward(self, x):
+        outs = zip(*(self.model(x[i : i + 1]) for i in range(x.shape[0])))
+        return tuple(torch.cat(o) for o in outs)
+
+
 def _mixed_dataset(root, sizes=MIXED, seed=0):
     """A RESIDE-layout test split with one hazy image a GT, at ``sizes`` in
     this order (the names sort as listed)."""
@@ -174,8 +187,8 @@ def test_infer_matches_jax(tmp_path, port_model, monkeypatch, kw):
 
 def test_infer_batches_by_padded_shape(tmp_path, port_model, monkeypatch):
     """At batch 2 the five mixed files take three forwards (46x62 x3 -> 2 + 1,
-    32x32 and 25x31 share 32x32), each of two images; a single file is a
-    valid input; PNG sizes come from the header."""
+    32x32 and 25x31 share 32x32), the partial one at its own size; a single
+    file is a valid input; PNG sizes come from the header."""
     src = os.path.join(_mixed_dataset(str(tmp_path / "data")), "test", "hazy")
     shapes = []
     fwd = port_model.forward
@@ -186,7 +199,7 @@ def test_infer_batches_by_padded_shape(tmp_path, port_model, monkeypatch):
 
     monkeypatch.setattr(port_model, "forward", counting)
     infer(port_model, src, str(tmp_path / "out"), batch_size=2, device="cpu")
-    assert sorted(shapes) == [(2, 32, 32, 3), (2, 64, 64, 3), (2, 64, 64, 3)]
+    assert sorted(shapes) == [(1, 64, 64, 3), (2, 32, 32, 3), (2, 64, 64, 3)]
     one = os.path.join(src, sorted(os.listdir(src))[2])
     assert infer(port_model, one, str(tmp_path / "one"), device="cpu")["count"] == 1
     assert read_png_size(one) == (32, 32)
@@ -197,10 +210,32 @@ def test_infer_batches_by_padded_shape(tmp_path, port_model, monkeypatch):
 
 # ---------------------------------------------------------------- validate
 
+@pytest.mark.parametrize("batch_size", [1, 2, 3])
+def test_validate_matches_jax_batch1(tmp_path, port_model, monkeypatch, capsys,
+                                     batch_size):
+    """``validate`` at batch 1, 2 and 3 over mixed sizes against the JAX
+    batch-1 loop on the port's batch-1 predictions (its forward
+    monkeypatched to the port's), with the same printed line.  The
+    bucketing, cropping and PSNR are held to 1e-9 dB through a model that
+    runs a batch image by image; the batched forward itself rounds
+    differently in float32, so with the real model only batch 1 is held to
+    1e-9 and batches 2 and 3 to 1e-6."""
+    data = _mixed_dataset(str(tmp_path / "data"))
+    got = validate(port_model, data, batch_size=batch_size)
+    split = validate(_PerImage(port_model), data, batch_size=batch_size)
+    got_out = capsys.readouterr().out
+    monkeypatch.setattr(jax_evaluator, "_make_forward",
+                        lambda model, params: _port_fwd(port_model))
+    want = jax_evaluator.validate(None, None, data, batch_size=1)
+    assert got_out == 2 * capsys.readouterr().out == 2 * "Start Validation...\n"
+    assert split == pytest.approx(want, rel=0, abs=1e-9)
+    assert got == pytest.approx(want, rel=0, abs=1e-9 if batch_size == 1 else 1e-6)
+
+
 @pytest.mark.parametrize("batch_size", [2, 3])
 def test_validate_batched_matches_batch1(tmp_path, port_model, batch_size):
     """Batched validation over mixed sizes (buckets flush on a change of
-    shape; partial buckets filled by repeats) gives the batch-1 PSNR."""
+    shape; a partial bucket runs at its own size) gives the batch-1 PSNR."""
     data = _mixed_dataset(str(tmp_path / "data"))
     want = validate(port_model, data)
     got = validate(port_model, data, batch_size=batch_size)
