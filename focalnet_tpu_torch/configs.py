@@ -2,11 +2,11 @@
 of ``focalnet_tpu/configs.py``).
 
 The port keeps its own copy: it imports nothing of ``focalnet_tpu``.  Only the
-fields the port reads are here; the precision, checkpointing and mesh fields
-of the JAX config arrive with the slices that use them (ROADMAP).
+fields the port reads are here; the JAX config's mesh fields arrive with the
+parallelism slice (ROADMAP).
 
-    baseline  — conv ResBlock x 1 per stage (not ported yet)
-    1mlp      — VSSG, gl_merge=True, ps_global=4, ps_local=2 (not ported yet)
+    baseline  — conv ResBlock x 1 per stage, no outer residual
+    1mlp      — VSSG, gl_merge=True, ps_global=4, ps_local=2
     1mlp_g2   — VSSG, gl_merge=False, ps_global=2 (the flagship)
     1mlp_g4   — VSSG, gl_merge=False, ps_global=4
 """
@@ -46,14 +46,23 @@ class ModelConfig:
     ssm_drop_rate: float = 0.0
     ssm_init: str = "v0"
     forward_type: str = "v4"
+    # dtype of the x_proj / dt_proj operands (summed in fp32 either way);
+    # "" keeps the activations' dtype
+    ssm_proj_dtype: str = ""
+    # dtype of the scan's output y, its y_accum chain and the raster sum; ""
+    # keeps the reference's fp32 ("oflex"); the scan state stays fp32 either way
+    ssm_out_dtype: str = ""
 
     # MLP branch
     mlp_ratio: float = 1.0
     mlp_act: str = "gelu"
     mlp_drop_rate: float = 0.0
 
+    # recompute every VSSBlock in the backward instead of keeping its activations
+    use_checkpoint: bool = False
     # auto: the CUDA kernel for CUDA tensors, the chunked scan for CPU tensors
     scan_backend: str = "auto"  # auto | cuda | chunked | ref
+    compute_dtype: str = "float32"  # params fp32; bfloat16 activations opt-in
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

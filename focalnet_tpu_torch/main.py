@@ -6,6 +6,11 @@ Usage:
     python -m focalnet_tpu_torch.main --mode infer --input <image or dir> --test_model <pkl>
     python -m focalnet_tpu_torch.main --mode serve --test_model <reference .pkl>
     python -m focalnet_tpu_torch.main --flops_report --mode serve
+    python -m focalnet_tpu_torch.main --preset 1mlp --compute_dtype bfloat16 --ssm_out_dtype bfloat16
+
+``--preset`` takes the JAX CLI's four (``baseline``, ``1mlp``, ``1mlp_g2``,
+``1mlp_g4``) in every mode; ``--compute_dtype bfloat16 --ssm_out_dtype
+bfloat16`` is the JAX package's bf16 training recipe.
 
 The defaults are the JAX CLI's: ``--mode train``, ``--test_model
 results/weights/Best.pkl`` (the reference-format counterpart of JAX's Orbax
@@ -41,6 +46,10 @@ def main(argv=None, inp=None, out=None):
 
     device = resolve_device(args.device or None)
     overrides = {}
+    if args.compute_dtype:
+        overrides["compute_dtype"] = args.compute_dtype
+    if args.ssm_out_dtype:
+        overrides["ssm_out_dtype"] = args.ssm_out_dtype
     if args.vssg_dim:
         overrides["vssg_dim"] = args.vssg_dim
     if args.ssm_d_state:
@@ -135,7 +144,8 @@ def _flops_report(preset, device, overrides):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="focalnet_tpu_torch")
-    p.add_argument("--preset", type=str, default="1mlp_g2", choices=["1mlp_g2"])
+    p.add_argument("--preset", type=str, default="1mlp_g2",
+                   choices=["baseline", "1mlp", "1mlp_g2", "1mlp_g4"])
     p.add_argument("--mode", type=str, default="train",
                    choices=["train", "test", "infer", "serve"])
     p.add_argument("--input", type=str, default="",
@@ -186,6 +196,15 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--flops_report", action="store_true",
                    help="print params and GFLOPs at 256x256, then run --mode")
+    p.add_argument("--compute_dtype", type=str, default="",
+                   choices=["", "float32", "bfloat16"],
+                   help="activation compute dtype (params stay fp32)")
+    p.add_argument("--ssm_out_dtype", type=str, default="",
+                   choices=["", "float32", "bfloat16"],
+                   help="scan OUTPUT dtype; '' keeps the reference 'oflex' "
+                        "fp32-out contract.  bfloat16 (with --compute_dtype "
+                        "bfloat16) halves y/dy HBM traffic; scan state stays "
+                        "fp32 either way")
     p.add_argument("--device", type=str, default="",
                    help="'' = the CUDA card (error without one); 'cpu' to run "
                         "on the CPU")

@@ -2,20 +2,106 @@
 
 NCHW, PyTorch's native conv layout; module names follow the reference
 (``BasicConv.main.0`` is the conv, ``SCM.main.4`` the InstanceNorm,
-``FAM.merge``).  ``ResBlock`` and ``GhostModule`` arrive with the presets
-that use them (ROADMAP).
+``FAM.merge``, ``ResBlock.main.{0,1}``).  ``GhostModule`` and
+``BasicConv``'s BatchNorm option are not ported: no preset uses them
+(ROADMAP).
+
+Precision follows the JAX package's ``dtype=``: parameters stay fp32 and
+are cast at each use, and a bf16 model rounds where the JAX program rounds.
+:class:`Conv2d`, :class:`ConvTranspose2d` and :class:`Linear` compute in
+their input's dtype (the model casts its input once to ``compute_dtype``, so
+every one of them runs in it): in bf16 the product is summed in fp32 and
+rounded, then the bias is added and the sum rounded, as flax's layers do;
+:class:`LayerNorm` and :class:`InstanceNorm2d` compute in fp32 and return
+their input's dtype; in bf16 :func:`gelu_exact` and :func:`silu` are the
+JAX functions' chains of primitives, each rounded.  In fp32 every one of
+them is the single PyTorch operator.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
+def _add_bias(y, bias, dim):
+    """y + bias along channel axis ``dim``, bias cast to y's dtype."""
+    shape = [1] * y.dim()
+    shape[dim] = -1
+    return y + bias.to(y.dtype).reshape(shape)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype, the fp32 parameters cast at use."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32 or self.bias is None:
+            return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+        return _add_bias(self._conv_forward(x, self.weight.to(x.dtype), None), self.bias, 1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype, the fp32 parameters cast at use."""
+
+    def forward(self, x):
+        fused = x.dtype == torch.float32 or self.bias is None
+        y = F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias if fused else None,
+                               self.stride, self.padding, self.output_padding, self.groups,
+                               self.dilation)
+        return y if fused else _add_bias(y, self.bias, 1)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype, the fp32 parameters cast at use."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32 or self.bias is None:
+            return F.linear(x, self.weight.to(x.dtype), self.bias)
+        return _add_bias(F.linear(x, self.weight.to(x.dtype)), self.bias, -1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in fp32 (flax's ``LayerNorm(dtype=float32)``),
+    returned in its input's dtype."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """Affine ``nn.InstanceNorm2d`` computed in fp32, returned in its input's dtype."""
+
+    def forward(self, x):
+        return super().forward(x.float()).to(x.dtype)
+
+
 def gelu_exact(x):
-    """PyTorch nn.GELU default = exact erf formulation."""
-    return F.gelu(x, approximate="none")
+    """The exact (erf) GELU.  Below fp32, ``jax.nn.gelu(approximate=False)``'s
+    primitives, each rounded to x's dtype: 0.5 x times erfc(-x c), with c
+    the dtype's rounding of sqrt(1/2)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    c = torch.tensor(math.sqrt(0.5), dtype=x.dtype).item()
+    return (0.5 * x) * torch.special.erfc(-x * c)
+
+
+def silu(x):
+    """x sigmoid(x).  Below fp32, ``jax.nn.silu``'s primitives, each rounded
+    to x's dtype: x times 1 / (1 + exp(-x))."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+class GELU(nn.Module):
+    """:func:`gelu_exact` as a module (``nn.GELU``'s slot in ``BasicConv.main``)."""
+
+    def forward(self, x):
+        return gelu_exact(x)
 
 
 class BasicConv(nn.Module):
@@ -27,16 +113,27 @@ class BasicConv(nn.Module):
                  bias=True, act=True, transpose=False):
         super().__init__()
         if transpose:
-            conv = nn.ConvTranspose2d(in_channels, out_channels, kernel_size,
-                                      stride=stride, padding=kernel_size // 2 - 1,
-                                      bias=bias)
+            conv = ConvTranspose2d(in_channels, out_channels, kernel_size,
+                                   stride=stride, padding=kernel_size // 2 - 1, bias=bias)
         else:
-            conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+            conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                              padding=kernel_size // 2, bias=bias)
-        self.main = nn.Sequential(conv, nn.GELU()) if act else nn.Sequential(conv)
+        self.main = nn.Sequential(conv, GELU()) if act else nn.Sequential(conv)
 
     def forward(self, x):
         return self.main(x)
+
+
+class ResBlock(nn.Module):
+    """conv3-GELU, conv3, plus the input: the ``baseline`` preset's stage block."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.main = nn.Sequential(BasicConv(channels, channels, 3, act=True),
+                                  BasicConv(channels, channels, 3, act=False))
+
+    def forward(self, x):
+        return self.main(x) + x
 
 
 class SCM(nn.Module):
@@ -51,7 +148,7 @@ class SCM(nn.Module):
             BasicConv(c // 4, c // 2, 1, act=True),
             BasicConv(c // 2, c // 2, 3, act=True),
             BasicConv(c // 2, c, 1, act=False),
-            nn.InstanceNorm2d(c, eps=1e-5, affine=True),
+            InstanceNorm2d(c, eps=1e-5, affine=True),
         )
 
     def forward(self, x):

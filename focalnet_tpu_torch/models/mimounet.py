@@ -4,6 +4,8 @@ The 3-scale encoder/decoder dehazer: multi-input (x, x/2, x/4 by nearest
 downsampling) and multi-output (3 scales, each added to its input).
 ``forward`` keeps the JAX package's layouts: it takes (B, H, W, 3) NHWC in
 [0, 1] and returns ``[out_4, out_2, out_1]`` NHWC; inside, convs run NCHW.
+Under ``compute_dtype`` the input is cast once at entry and the three
+outputs back to the input's dtype at the end; parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -13,21 +15,36 @@ from torch import nn
 
 from focalnet_tpu_torch.configs import PRESETS, SCAN_BACKENDS, ModelConfig
 from focalnet_tpu_torch.models.initializers import init_weights
-from focalnet_tpu_torch.models.layers import FAM, SCM, BasicConv, nearest_down2
+from focalnet_tpu_torch.models.layers import FAM, SCM, BasicConv, ResBlock, nearest_down2
 from focalnet_tpu_torch.models.vssg import VSSG
 from focalnet_tpu_torch.utils.device import resolve_device
 
 
+_DTYPES = {"": None, "float32": None, "fp32": None, "bfloat16": torch.bfloat16}
+
+
+def config_dtype(name: str):
+    """A config's dtype name -> the torch dtype to cast to; None for fp32
+    (and for ``""``), where nothing is cast."""
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r} not in {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
 class StageStack(nn.Module):
-    """EBlock/DBlock body: ``num_res`` VSSGs plus the outer residual."""
+    """EBlock/DBlock body: ``num_res`` VSSGs plus the outer residual, or for
+    ``block_type="resblock"`` (the ``baseline`` preset) ``num_res`` ResBlocks
+    and no outer residual, as the reference's baseline snapshot has it."""
 
     def __init__(self, channels: int, cfg: ModelConfig):
         super().__init__()
-        if cfg.block_type != "vssg":
-            raise NotImplementedError(
-                f"block_type {cfg.block_type!r} (the 'baseline' preset) is not "
-                "ported yet; see ROADMAP.md")
         c = cfg
+        self.residual = c.block_type == "vssg"
+        if c.block_type == "resblock":
+            self.layers = nn.ModuleList([ResBlock(channels) for _ in range(c.num_res)])
+            return
+        if c.block_type != "vssg":
+            raise ValueError(f"block_type {c.block_type!r} not in ('vssg', 'resblock')")
         self.layers = nn.ModuleList([
             VSSG(
                 in_chans=channels, patch_size_global=c.patch_size_global,
@@ -39,6 +56,9 @@ class StageStack(nn.Module):
                 ssm_init=c.ssm_init, forward_type=c.forward_type,
                 mlp_ratio=c.mlp_ratio, mlp_act=c.mlp_act,
                 mlp_drop_rate=c.mlp_drop_rate, scan_backend=c.scan_backend,
+                use_checkpoint=c.use_checkpoint,
+                ssm_proj_dtype=config_dtype(c.ssm_proj_dtype),
+                ssm_out_dtype=config_dtype(c.ssm_out_dtype),
             )
             for _ in range(c.num_res)
         ])
@@ -47,7 +67,7 @@ class StageStack(nn.Module):
         res = x
         for layer in self.layers:
             res = layer(res)
-        return res + x
+        return res + x if self.residual else res
 
 
 class MIMOUNet(nn.Module):
@@ -59,6 +79,7 @@ class MIMOUNet(nn.Module):
             raise ValueError(
                 f"scan_backend {cfg.scan_backend!r} not in {SCAN_BACKENDS}")
         self.cfg = cfg
+        self.compute_dtype = config_dtype(cfg.compute_dtype)
         d0, d1, d2 = cfg.dims
         self.Encoder = nn.ModuleList([StageStack(d, cfg) for d in (d0, d1, d2)])
         self.feat_extract = nn.ModuleList([
@@ -85,8 +106,12 @@ class MIMOUNet(nn.Module):
 
     def forward(self, x):
         """x: (B, H, W, 3) hazy image in [0, 1], H and W multiples of 32.
-        Returns [out_4, out_2, out_1] NHWC at 1/4, 1/2 and full resolution."""
+        Returns [out_4, out_2, out_1] NHWC at 1/4, 1/2 and full resolution,
+        in x's dtype."""
+        in_dtype = x.dtype
         x = x.permute(0, 3, 1, 2)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         x_2 = nearest_down2(x)
         x_4 = nearest_down2(x_2)
         z2 = self.SCM2(x_2)
@@ -114,7 +139,7 @@ class MIMOUNet(nn.Module):
         z = self.Decoder[2](z)
         z = self.feat_extract[5](z)
         outputs.append(z + x)
-        return [o.permute(0, 2, 3, 1) for o in outputs]
+        return [o.permute(0, 2, 3, 1).to(in_dtype) for o in outputs]
 
 
 def build_net(preset: str = "1mlp_g2", device=None, generator=None,

@@ -5,6 +5,15 @@ in_proj -> x/z split -> depthwise 3x3 -> SiLU -> 4-direction selective scan
 JAX module is here; its sequence- and tensor-parallel branches wait for the
 parallelism slice (ROADMAP).
 
+Precision (the JAX module's ``dtype``, ``proj_dtype``, ``ssm_out_dtype``):
+the activations arrive in the model's compute dtype and every product runs
+in it; ``x_proj`` and ``dt_proj`` take their operands rounded to
+``proj_dtype`` when it is set, sum in fp32 and round to the activation dtype;
+A, D and the dt bias stay fp32; the scan takes u, delta, B and C in the
+activation dtype and writes y, the ``y_accum`` chain and the raster sum in
+``out_dtype`` (fp32 by default); ``out_norm`` computes in fp32 and rounds to
+the activation dtype.
+
 Directions (``x_proj_weight`` is (K=4, R+2N, d_inner), ``dt_projs_weight``
 (4, d_inner, R); ``A_logs``, ``Ds`` and ``dt_projs_bias`` are k-major with
 rows k*d_inner:(k+1)*d_inner): k = 0 row raster, 1 column raster, 2 row
@@ -27,13 +36,13 @@ from focalnet_tpu_torch.models.initializers import (
     dt_bias_init,
     uniform_pm,
 )
-from focalnet_tpu_torch.models.layers import gelu_exact
+from focalnet_tpu_torch.models.layers import Conv2d, LayerNorm, Linear, gelu_exact, silu
 from focalnet_tpu_torch.ops.selective_scan import selective_scan
 
 K_DIRS = 4
 
 _ACTS = {
-    "silu": F.silu,
+    "silu": silu,
     "gelu": gelu_exact,
     "relu": F.relu,
     "sigmoid": torch.sigmoid,
@@ -139,8 +148,8 @@ class Mlp(nn.Module):
     def __init__(self, in_features, hidden_features, out_features=None,
                  act="gelu", drop=0.0):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features or in_features)
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features or in_features)
         self.act = _ACTS[act]
         self.drop = Dropout(drop)
 
@@ -154,7 +163,8 @@ class SS2D(nn.Module):
     def __init__(self, d_model, d_state=16, ssm_ratio=2.0, dt_rank="auto",
                  act="silu", d_conv=3, conv_bias=True, dropout=0.0, bias=False,
                  dt_min=0.001, dt_max=0.1, dt_scale=1.0, dt_init_floor=1e-4,
-                 initialize="v0", forward_type="v4", scan_backend="auto"):
+                 initialize="v0", forward_type="v4", scan_backend="auto",
+                 proj_dtype=None, out_dtype=None):
         super().__init__()
         flags = parse_forward_type(forward_type)
         if flags["out_norm"] != "ln" or flags["disable_z"] or flags["disable_z_act"]:
@@ -169,19 +179,21 @@ class SS2D(nn.Module):
         self.rank = R = math.ceil(d_model / 16) if dt_rank == "auto" else dt_rank
         self.act = _ACTS[act]
         self.scan_backend = scan_backend
+        self.proj_dtype = proj_dtype  # None: the activations' dtype
+        self.out_dtype = out_dtype or torch.float32
         self.dt_scale = dt_scale
         self.dt_range = (dt_min, dt_max, dt_init_floor)
 
-        self.in_proj = nn.Linear(d_model, 2 * D, bias=bias)
-        self.conv2d = nn.Conv2d(D, D, d_conv, padding=(d_conv - 1) // 2,
-                                groups=D, bias=conv_bias)
+        self.in_proj = Linear(d_model, 2 * D, bias=bias)
+        self.conv2d = Conv2d(D, D, d_conv, padding=(d_conv - 1) // 2,
+                             groups=D, bias=conv_bias)
         self.x_proj_weight = nn.Parameter(torch.empty(K_DIRS, R + 2 * N, D))
         self.dt_projs_weight = nn.Parameter(torch.empty(K_DIRS, D, R))
         self.dt_projs_bias = nn.Parameter(torch.empty(K_DIRS, D))
         self.A_logs = nn.Parameter(torch.empty(K_DIRS * D, N))
         self.Ds = nn.Parameter(torch.empty(K_DIRS * D))
-        self.out_norm = nn.LayerNorm(D, eps=1e-5)
-        self.out_proj = nn.Linear(D, d_model, bias=bias)
+        self.out_norm = LayerNorm(D, eps=1e-5)
+        self.out_proj = Linear(D, d_model, bias=bias)
         self.dropout = Dropout(dropout)
 
     @torch.no_grad()
@@ -193,8 +205,17 @@ class SS2D(nn.Module):
         a_log_init(self.A_logs, generator)
         self.Ds.fill_(1.0)
 
+    def _project(self, w, t, dtype):
+        """``w @ t`` as the JAX module's einsum: the operands rounded to
+        ``proj_dtype`` when it is set, the products summed in fp32, the
+        result rounded to ``dtype``."""
+        if self.proj_dtype is not None:
+            w, t = w.to(self.proj_dtype), t.to(self.proj_dtype)
+        return torch.matmul(w.float(), t.float()).to(dtype)
+
     def _core(self, x):
-        """4-direction scan of NCHW (B, D, H, W) -> normalised NHWC (B, H, W, D)."""
+        """4-direction scan of NCHW (B, D, H, W) -> normalised NHWC (B, H, W, D)
+        in x's dtype."""
         Bsz, D, H, W = x.shape
         N, R, L = self.d_state, self.rank, H * W
         A = -torch.exp(self.A_logs.float())  # (4D, N), k-major rows
@@ -206,17 +227,17 @@ class SS2D(nn.Module):
             xr = (x.transpose(2, 3) if col else x).reshape(Bsz, D, L).contiguous()
             # one product gives dt/B/C of both directions of this raster
             w2 = torch.cat([self.x_proj_weight[i], self.x_proj_weight[i + 2]], dim=0)
-            xd = torch.matmul(w2, xr)  # (B, 2(R+2N), L)
+            xd = self._project(w2, xr, x.dtype)  # (B, 2(R+2N), L)
             dts_f, Bs_f, Cs_f, dts_r, Bs_r, Cs_r = torch.split(
                 xd, [R, N, N, R, N, N], dim=1)
 
             def dscan(dts, Bm, Cm, k, reverse, y_accum=None):
                 rows = slice(k * D, (k + 1) * D)
                 return selective_scan(
-                    xr, torch.matmul(self.dt_projs_weight[k], dts),
+                    xr, self._project(self.dt_projs_weight[k], dts, x.dtype),
                     A[rows], Bm[:, None].contiguous(), Cm[:, None].contiguous(),
                     D=Ds[rows], delta_bias=bias[rows], delta_softplus=True,
-                    out_dtype=torch.float32, backend=self.scan_backend,
+                    out_dtype=self.out_dtype, backend=self.scan_backend,
                     reverse=reverse, y_accum=y_accum,
                 )
 
@@ -224,7 +245,7 @@ class SS2D(nn.Module):
                        y_accum=dscan(dts_f, Bs_f, Cs_f, i, False))
             yr = ys.reshape(Bsz, D, W, H).transpose(2, 3) if col else ys.reshape(Bsz, D, H, W)
             y = yr if y is None else y + yr
-        return self.out_norm(y.permute(0, 2, 3, 1))
+        return self.out_norm(y.permute(0, 2, 3, 1).float()).to(x.dtype)
 
     def forward(self, x):
         """x: (B, H, W, d_model) -> (B, H, W, d_model)."""

@@ -5,18 +5,25 @@
   draws from the trainer's step-seeded generator, as DropPath does.
 - The CLI's defaults differed from the JAX CLI's (``--mode``,
   ``--test_model``); ``--flops_report`` now runs ``--mode`` after the report
-  (``tests/test_torch_probe.py::test_flops_report_params_match_jax``).
+  (``tests/test_torch_probe.py::test_flops_report_params_match_jax``).  The
+  CLI takes JAX's presets and precision flags, and records them as JAX does.
 
 Cheap: a tiny model on the CPU, no JAX model and no jit.
 """
 
+import argparse
+import dataclasses
+import json
 import math
+import os
+from unittest import mock
 
 import pytest
 import torch
 
+from focalnet_tpu.configs import PRESETS as JAX_PRESETS
 from focalnet_tpu.main import parse_args as jax_parse_args
-from focalnet_tpu_torch.main import parse_args
+from focalnet_tpu_torch.main import main, parse_args
 from focalnet_tpu_torch.models import Dropout, build_net, set_dropout_generator
 from focalnet_tpu_torch.train.trainer import step_seed
 
@@ -93,11 +100,46 @@ def test_train_forward_at_rate_0_draws_nothing():
     assert torch.equal(g.get_state(), state)
 
 
-def test_cli_defaults_match_jax():
+def _choices(parse, argv):
+    """{dest: choices} of the parser that ``parse(argv)`` builds."""
+    parsers = []
+    real = argparse.ArgumentParser.parse_args
+
+    def spy(self, *args, **kw):
+        parsers.append(self)
+        return real(self, *args, **kw)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", spy):
+        parse(argv)
+    return {a.dest: a.choices for a in parsers[0]._actions if a.choices}
+
+
+def test_cli_defaults_match_jax(tmp_path):
     """``parse_args([])``: the mode is JAX's (train), and the checkpoint to
-    serve is the reference-format counterpart of JAX's Orbax default."""
+    serve is the reference-format counterpart of JAX's Orbax default.
+    ``--preset``, ``--compute_dtype`` and ``--ssm_out_dtype`` take JAX's
+    choices, and ``config.json`` written under ``--compute_dtype bfloat16
+    --ssm_out_dtype bfloat16`` holds JAX's fields and values."""
     port, ref = parse_args([]), jax_parse_args([])
     assert port.mode == ref.mode == "train"
     assert port.test_model == ref.test_model + ".pkl" == "results/weights/Best.pkl"
     assert port.model_save_dir == ref.model_save_dir
     assert port.flops_report is ref.flops_report is False
+    port_choices, jax_choices = _choices(parse_args, []), _choices(jax_parse_args, [])
+    for dest in ("preset", "compute_dtype", "ssm_out_dtype"):
+        assert port_choices[dest] == jax_choices[dest], dest
+    assert port_choices["preset"] == ["baseline", "1mlp", "1mlp_g2", "1mlp_g4"]
+
+    out = str(tmp_path / "w")
+    recipe = ["--compute_dtype", "bfloat16", "--ssm_out_dtype", "bfloat16"]
+    with pytest.raises(SystemExit, match="needs --input"):  # after config.json
+        main(["--mode", "infer", "--device", "cpu", "--preset", "1mlp", *recipe,
+              "--model_save_dir", out, "--result_dir", str(tmp_path / "images")])
+    with open(os.path.join(out, "config.json")) as f:
+        got = json.load(f)["model"]
+    want = json.loads(json.dumps(dataclasses.asdict(JAX_PRESETS["1mlp"].replace(
+        compute_dtype="bfloat16", ssm_out_dtype="bfloat16"))))
+    assert {"compute_dtype", "ssm_out_dtype", "ssm_proj_dtype", "use_checkpoint"} <= set(got)
+    assert set(got) <= set(want)
+    shared = set(got) - {"scan_backend"}  # the backends' names differ
+    assert {k: got[k] for k in shared} == {k: want[k] for k in shared}

@@ -191,6 +191,67 @@ def test_forward_kernel_at_eval_lengths_on_card(L, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,L,dtype", [
+    (1, 256, torch.float32),      # the patch-4 branch at 256x256: one 256-item chunk
+    (4, 256, torch.float32),      # the train step's batch
+    (1, 1200, torch.float32),     # at 480x640: four chunks and a ragged 176
+    (4, 256, torch.bfloat16),     # the bf16 recipe: bf16 in, out and y_accum
+])
+def test_forward_kernel_at_preset_lengths_on_card(batch, L, dtype):
+    """K1 at the model's widths and the other presets' new scan lengths,
+    forward, and reverse with y_accum, with chunk states, against the plain
+    scan and chunk_states_ref.  In bf16 the kernel adds y_accum before its
+    rounding and the plain scan after it: one bf16 step apart at most."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, yacc = _scan_inputs("cuda", L=L, dim=192, N=16, G=1, batch=batch)
+    for k in ("u", "delta", "B", "C"):
+        x[k] = x[k].to(dtype)
+    tol = dict(rtol=6e-4, atol=2e-3) if dtype == torch.float32 else dict(rtol=3e-2, atol=5e-2)
+    for reverse, acc in ((False, None), (True, yacc.to(dtype))):
+        kw = dict(delta_softplus=True, reverse=reverse, y_accum=acc, out_dtype=dtype)
+        with torch.no_grad():
+            before = selective_scan_cuda.launches
+            got, hchk = selective_scan_cuda(**x, chunk_states=True, **kw)
+            torch.cuda.synchronize()
+            assert selective_scan_cuda.launches == before + 1
+            assert fwd_launched_tile() == fwd_tile_channels(batch, 192, 1, 16, dtype, dtype)
+            want = selective_scan(**x, backend="chunked", **kw)
+            want_h = chunk_states_ref(x["u"], x["delta"], x["A"], x["B"], x["delta_bias"],
+                                      True, reverse)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        torch.testing.assert_close(hchk, want_h, rtol=6e-4, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_kernel_at_length_256_on_card(reverse, dtype):
+    """K2 at the model's widths, L = 256 (one chunk, walked backwards from
+    K1's one chunk state), the train step's batch of 4, against the plain
+    adjoint; in bf16 with a bf16 dy, as the recipe's scans give it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x, dy = _scan_inputs("cuda", L=256, dim=192, N=16, G=1, batch=4)
+    for k in ("u", "delta", "B", "C"):
+        x[k] = x[k].to(dtype)
+    dy = dy.to(dtype)
+    with torch.no_grad():
+        _, hchk = selective_scan_cuda(**x, delta_softplus=True, reverse=reverse,
+                                      chunk_states=True)
+        before = selective_scan_bwd_cuda.launches
+        got = selective_scan_bwd_cuda(*x.values(), dy, hchk, True, reverse)
+        torch.cuda.synchronize()
+        assert selective_scan_bwd_cuda.launches == before + 1
+        want = selective_scan_bwd_ref(*x.values(), dy, True, reverse)
+    for g, w in zip(got, want):
+        scale = max(w.float().abs().max().item(), 1.0)
+        tol = 1e-3 if dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_backward_kernel_matches_plain_on_card(reverse, in_dtype):
