@@ -31,7 +31,20 @@ forwards (kernel vs plain), train steps (gradients, kernel vs plain) and
 (``--compute_dtype bfloat16 --ssm_out_dtype bfloat16``) its forwards, its
 step (gradients, peak memory with and without ``use_checkpoint``) and one
 ``--mode train`` epoch of ``1mlp``; and the fp32 forward and step are timed
-with TF32 off and on.  Each phase prints one JSON line; any failed check
+with TF32 off and on.  The sequence-parallel slice: both scan kernels'
+segment API (K1 h0 -> h_last, K2 dh_last -> dh0) against their plain
+versions at the sharded path's shapes (384 channels in two groups, half
+the lengths of a 256x256 step and a 480x640 test, fp32 and bf16, both
+directions, chained halves against the whole call), timed beside the plain
+launch; ``--mode test --mesh_shape 1,2`` on the 460x620 split against the
+single-rank run; and ``--mesh_shape 1,2`` training (the first step's
+gradients against one rank's, then 3 steps through the CLI with the ranks'
+parameters compared), with every rank's launch counts and peak memory.
+The two ranks share the one card (gloo); a rank that dies or a collective
+that hangs fails the run.  ``python3 chip_smoke.py --sp_only`` runs the
+sequence-parallel phases alone on every card of the machine (one card per
+rank over NCCL where there are enough; ``--mesh_shape 1,4`` too with four).
+Each phase prints one JSON line; any failed check
 exits non-zero before the last line, which is ``{"ok": true,
 "device": {...}}``.
 Weights are random, from a seed: no trained checkpoint is in the repository.
@@ -108,6 +121,17 @@ PROBE_CHECK_LOOPS = (1, 8, 64)
 PROBE_PATH_LOOPS = (8, 64, 512)  # the CLI's pair and chip_smoke's (64, 512)
 PROBE_RTOL = 1e-4
 FMA_LANES_PER_SM = 128
+# the sequence-parallel path (--mesh_shape 1,2): each SS2D stacks its two
+# rasters into one scan of D = 2 x 192 channels in two B/C groups, twice (the
+# forward pair, the reversed pair), each rank scanning L / 2; the lengths
+# per rank at 256x256 (the train step's batch 4) and 480x640 (--mode test)
+SP_MESH, SP_RANKS = "1,2", 2
+SP_DIM, SP_GROUPS = 384, 2
+SP_LS = {TRAIN_BATCH: (8192, 2048, 512), 1: (38400, 9600, 2400)}
+SP_LAUNCHES_PER_FORWARD = 24   # 12 SS2D x 2 stacked-pair calls, on each rank
+# a rank that dies fails the run at once; a collective that hangs fails its
+# rank after parallel.mesh.COLLECTIVE_TIMEOUT_S (300 s), and with it the run
+SP_TIMEOUT_S = 300
 
 
 def emit(**fields):
@@ -788,7 +812,8 @@ def phase_test_cli(cli_main, counters, tmp, ckpt, card):
     460x620), on the kernel and then on the plain scan (``--scan_backend
     chunked``): per-image PSNR within 0.01 dB, SSIM within 1e-4 (as
     printed), saved PNGs within 1 LSB; 48 K1 launches per image, none of K2.
-    Returns the kernel run's K1 launches."""
+    Returns the kernel run's time per image, K1 launches and per-image
+    (PSNR, SSIM)."""
     from focalnet_tpu_torch.data.png import read_png
     from focalnet_tpu_torch.data.reside import make_synthetic_dataset
 
@@ -844,7 +869,7 @@ def phase_test_cli(cli_main, counters, tmp, ckpt, card):
         fail(f"--mode test, kernel vs plain: PSNR {d_psnr} dB, SSIM {d_ssim}, PNG {d_png} LSB")
     print(f"--mode test at {SOTS_HW[0]}x{SOTS_HW[1]}: Average time: {k_res['time']:.6f} s "
           f"(kernel), {p_res['time']:.6f} s (plain scan); {card}", flush=True)
-    return k_res["time"], k_launches
+    return k_res["time"], k_launches, k_img
 
 
 def _tile_forwards(hw, tile=256, overlap=32, batch=4):
@@ -1251,6 +1276,409 @@ def phase_tf32(build_net, card):
     return diff
 
 
+# ---------------------------------------------------------------------------
+# the sequence-parallel slice: the segment API of K1 and K2, and
+# --mesh_shape 1,2 of --mode test and --mode train
+
+
+def bound_segment(L, clock_mhz, sms, batch, dim=SP_DIM, N=16, groups=SP_GROUPS, in_bytes=4,
+                  out_bytes=4, accum=False, chunk_states=False):
+    """:func:`bound` for a segment call of K1 with G groups: the bytes also
+    hold h0 read and h_last written, (batch, dim, N) fp32 each."""
+    n_chunks = -(-L // 256)
+    nbytes = (batch * (dim * L * (2 * in_bytes + out_bytes * (2 if accum else 1))
+                       + 2 * groups * N * L * in_bytes
+                       + (dim * n_chunks * N * 4 if chunk_states else 0) + 2 * dim * N * 4)
+              + (dim * N + 2 * dim) * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = batch * (9 * L * dim * N + L * dim) / PEAK_FP32_FLOPS * 1e3
+    t_sfu = batch * sfu_ms(L, clock_mhz, sms, dim, N)
+    return max(t_bytes, t_ops, t_sfu), "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
+
+
+def bound_segment_bwd(L, clock_mhz, sms, batch, dim=SP_DIM, N=16, groups=SP_GROUPS, in_bytes=4):
+    """:func:`bound_bwd` for a segment call of K2 with G groups: the bytes
+    also hold dh_last read and dh0 written, (batch, dim, N) fp32 each."""
+    n_chunks = -(-L // 256)
+    nbytes = (batch * (dim * L * (4 * in_bytes + 4) + 2 * groups * N * L * (in_bytes + 4)
+                       + dim * n_chunks * N * 4 + 2 * dim * N * 4) + 2 * (dim * N + 2 * dim) * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = batch * (22 * L * dim * N + 10 * L * dim) / PEAK_FP32_FLOPS * 1e3
+    t_sfu = batch * sfu_ms(L, clock_mhz, sms, dim, N)
+    return max(t_bytes, t_ops, t_sfu), "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
+
+
+def phase_kernel_segment(scan, fwd, bwd, bwd_ref, fwd_ref_states, clock_mhz, sms):
+    """The segment API at the sequence-parallel path's shapes (D = 384, two
+    groups, N = 16; a rank's L / 2 of the 256x256 train step at B = 4 and of
+    the 480x640 test at B = 1), fp32 and bf16 operands:
+
+    - K1 with h0 -> h_last (and chunk states from h0), both directions,
+      with and without y_accum, against the plain scan and chunk_states_ref
+      under TOLS; two chained half segments against the whole call; a zero
+      h0 gives the plain launch's y and chunk states bit for bit;
+    - K2 with dh_last -> dh0 at the B = 4 lengths, both directions, every
+      gradient and dh0 against the plain adjoint under GRAD_TOLS; a zero
+      dh_last gives the plain launch's du and ddelta bit for bit;
+    - in fp32, forward direction: each segment call's time beside the
+      plain launch at the same shape (in turns: plain, segment, segment,
+      plain), the plain version's and the bound with the states' bytes.
+
+    Returns the worst fp32 errors of K1 and K2 and the timings."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst, worst_bwd, timing = 0.0, 0.0, {}
+    for batch, lengths in SP_LS.items():
+        for L in lengths:
+            for dt in (f32, bf16):
+                x, dy = scan_inputs(L, dim=SP_DIM, dtype=dt, seed=2, batch=batch,
+                                    groups=SP_GROUPS)
+                g = torch.Generator(device="cuda").manual_seed(3)
+                h0, dh_last = (torch.randn(batch, SP_DIM, 16, generator=g, device="cuda")
+                               for _ in range(2))
+                yacc, zero = torch.randn_like(dy), torch.zeros_like(h0)
+                rtol, atol = TOLS[dt]
+                for rev in (False, True):
+                    for acc in (False, True):
+                        kw = dict(delta_softplus=True, reverse=rev,
+                                  y_accum=yacc if acc else None)
+                        with torch.inference_mode():
+                            y, h_last, hchk = fwd(**x, **kw, h0=h0, return_state=True,
+                                                  chunk_states=True)
+                            y_w, h_w = scan(**x, **kw, backend="chunked", h0=h0,
+                                            return_state=True)
+                            want_h = fwd_ref_states(x["u"], x["delta"], x["A"], x["B"],
+                                                    x["delta_bias"], True, rev, h0=h0)
+                            half = lambda t, i: (t[..., :L // 2] if i == 0
+                                                 else t[..., L // 2:]).contiguous()
+                            ops = lambda i: {k: half(v, i) if v.dim() > 2 and v.shape[-1] == L
+                                             else v for k, v in x.items()}
+                            seg = lambda i, h: fwd(
+                                **ops(i), delta_softplus=True, reverse=rev, h0=h,
+                                y_accum=half(yacc, i) if acc else None, return_state=True)
+                            first, second = (1, 0) if rev else (0, 1)
+                            y1, h1 = seg(first, h0)
+                            y2, h2 = seg(second, h1)
+                            y_chain = torch.cat([y2, y1] if rev else [y1, y2], dim=-1)
+                            y_null, hchk_null = fwd(**x, **kw, chunk_states=True)
+                            y_zero, _, hchk_zero = fwd(**x, **kw, h0=zero, return_state=True,
+                                                       chunk_states=True)
+                        torch.cuda.synchronize()
+                        errs = dict(y=max_err(y, y_w, rtol, atol),
+                                    h_last=max_err(h_last, h_w, rtol, atol),
+                                    chunk_states=max_err(hchk, want_h, rtol, atol),
+                                    chained_y=max_err(y_chain, y, rtol, atol),
+                                    chained_h_last=max_err(h2, h_last, rtol, atol))
+                        bitwise = bool(torch.equal(y_zero, y_null)
+                                       and torch.equal(hchk_zero, hchk_null))
+                        emit(phase="kernel_segment", kernel="fwd", batch=batch, L=L,
+                             reverse=rev, y_accum=acc, dtype=str(dt),
+                             max_abs_err={k: e for k, (e, _) in errs.items()},
+                             zero_h0_bitwise=bitwise, rtol=rtol, atol=atol)
+                        if not (bitwise and all(ok for _, ok in errs.values())):
+                            fail(f"K1 segment at B={batch} L={L} reverse={rev} y_accum={acc} "
+                                 f"{dt}: {errs}, zero h0 bit for bit: {bitwise}")
+                        if dt == f32:
+                            worst = max(worst, *(e for e, _ in errs.values()))
+                        del y, y_w, y_chain, y_null, y_zero, want_h, hchk_null, hchk_zero, y1, y2
+                        if batch != TRAIN_BATCH or acc:
+                            continue
+                        args = (*x.values(), dy, hchk, True, rev)
+                        grads = bwd(*args, dh_last=dh_last, with_state=True)
+                        want = bwd_ref(*args[:8], True, rev, h0=h0, dh_last=dh_last,
+                                       with_state=True)
+                        g_null = bwd(*args)
+                        g_zero = bwd(*args, dh_last=zero, with_state=True)
+                        torch.cuda.synchronize()
+                        gerrs = {}
+                        for name, got, w in zip(GRAD_NAMES[:7] + ("dh0",), grads, want):
+                            gerrs[name], ok = grad_err(got, w, *GRAD_TOLS[dt])
+                            if not ok:
+                                fail(f"K2 segment at B={batch} L={L} reverse={rev} {dt}: "
+                                     f"{name} max abs err {gerrs[name]}")
+                        bitwise = bool(torch.equal(g_zero[0], g_null[0])
+                                       and torch.equal(g_zero[1], g_null[1]))
+                        emit(phase="kernel_segment", kernel="bwd", batch=batch, L=L,
+                             reverse=rev, dtype=str(dt), max_abs_err=gerrs,
+                             zero_dh_last_bitwise=bitwise, rtol=GRAD_TOLS[dt][0],
+                             atol=GRAD_TOLS[dt][1])
+                        if not bitwise:
+                            fail(f"K2 at B={batch} L={L} reverse={rev} {dt}: a zero dh_last "
+                                 "does not give the plain launch's du and ddelta")
+                        if dt == f32:
+                            worst_bwd = max(worst_bwd, *gerrs.values())
+                        del grads, want, g_null, g_zero
+                if dt == f32:
+                    timing.update(_time_segment(scan, fwd, bwd, bwd_ref, x, dy, h0, dh_last,
+                                                batch, L, clock_mhz, sms))
+                del x, dy, yacc
+                torch.cuda.empty_cache()
+    return worst, worst_bwd, timing
+
+
+def _time_segment(scan, fwd, bwd, bwd_ref, x, dy, h0, dh_last, batch, L, clock_mhz, sms):
+    """K1 (and at the train step's batch, with its chunk states, K2) as the
+    sequence-parallel path launches them, forward direction, fp32: the
+    segment call and the plain launch at the same shape, in turns, the plain
+    versions and the bounds."""
+    train = batch == TRAIN_BATCH
+    kw = dict(delta_softplus=True, chunk_states=train)
+    seg_kw = dict(kw, h0=h0, return_state=True)
+    with torch.inference_mode():
+        k1 = lambda **k: kernel_ms(lambda: fwd(**x, **k), "selective_scan_fwd")
+        dense = [k1(**kw)]
+        seg = [k1(**seg_kw), k1(**seg_kw)]
+        dense.append(k1(**kw))
+        plain = time_ms(lambda: scan(**x, delta_softplus=True, backend="chunked", h0=h0,
+                                     return_state=True), reps=3, warmup=1)
+        b, by = bound_segment(L, clock_mhz, sms, batch, chunk_states=train)
+        emit(phase="kernel_segment_time", kernel="fwd", batch=batch, L=L, dim=SP_DIM,
+             groups=SP_GROUPS, chunk_states=train, ms=seg, dense_ms=dense, plain_ms=plain,
+             bound_ms=b, bound_by=by)
+        out = {("fwd", batch, L): (statistics.mean(seg), statistics.mean(dense), plain, b, by)}
+        if not train:
+            return out
+        hchk = fwd(**x, **seg_kw)[2]
+        args = (*x.values(), dy, hchk, True, False)
+        k2 = lambda **k: kernel_ms(lambda: bwd(*args, **k), "selective_scan_bwd")
+        dense = [k2()]
+        seg = [k2(dh_last=dh_last, with_state=True), k2(dh_last=dh_last, with_state=True)]
+        dense.append(k2())
+        plain = time_ms(lambda: bwd_ref(*args[:8], True, False, h0=h0, dh_last=dh_last,
+                                        with_state=True), reps=3, warmup=1)
+        b, by = bound_segment_bwd(L, clock_mhz, sms, batch)
+        emit(phase="kernel_segment_time", kernel="bwd", batch=batch, L=L, dim=SP_DIM,
+             groups=SP_GROUPS, ms=seg, dense_ms=dense, plain_ms=plain, bound_ms=b, bound_by=by)
+        out[("bwd", batch, L)] = (statistics.mean(seg), statistics.mean(dense), plain, b, by)
+    return out
+
+
+@contextlib.contextmanager
+def _stdout_fd_to(path):
+    """File descriptor 1 (this process's and the ranks' it spawns) into
+    ``path`` for the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _sp_cli(cli_main, argv, tmp, name, mesh_shape=SP_MESH):
+    """``cli_main(argv + --mesh_shape mesh_shape)`` with its ranks' output in
+    a file; returns the ranks' reports and the run's seconds."""
+    t0 = time.perf_counter()
+    with _stdout_fd_to(os.path.join(tmp, f"{name}.out")):
+        reports = cli_main(argv + ["--mesh_shape", mesh_shape])
+    return reports, time.perf_counter() - t0
+
+
+def _sp_note(ranks):
+    return ("the ranks share one card: times measure correctness and overhead, not scaling"
+            if torch.cuda.device_count() < ranks else None)
+
+
+def phase_sp_test_cli(cli_main, tmp, ckpt, single_per_image, card, mesh_shape=SP_MESH):
+    """``--mode test --mesh_shape 1,M`` through the CLI on the synthetic
+    460x620 split of ``phase_test_cli``: M ranks (gloo when they share a
+    card), each image's PSNR within 0.01 dB and SSIM within 1e-4 of the
+    single-rank kernel run (as printed), 24 segment K1 launches per image on
+    each rank and no K2, and each rank's peak memory.  Ranks that share a
+    card contend for its SMs: the time per image then measures correctness
+    and overhead, not scaling.  Returns rank 0's K1 launches and time per
+    image."""
+    data = os.path.join(tmp, "sots")
+    n_images = len(single_per_image)
+    reports, seconds = _sp_cli(cli_main, [
+        "--mode", "test", "--data_dir", data, "--test_model", ckpt,
+        "--result_dir", os.path.join(tmp, f"sp_test_{mesh_shape}"),
+        "--model_save_dir", os.path.join(tmp, "sp_test_cfg")], tmp, "sp_test_cli", mesh_shape)
+    per_image, summary = _eval_lines(reports[0]["stdout"])
+    expected = [SP_LAUNCHES_PER_FORWARD * n_images] * 2 + [0, 0]
+    got = [[r["launches_fwd"], r["segment_launches_fwd"], r["launches_bwd"],
+            r["segment_launches_bwd"]] for r in reports]
+    d_psnr = max((abs(a[0] - b[0]) for a, b in zip(per_image, single_per_image)), default=None)
+    d_ssim = max((abs(a[1] - b[1]) for a, b in zip(per_image, single_per_image)), default=None)
+    emit(phase="sp_test_cli", mesh_shape=mesh_shape, ranks=len(reports),
+         backend=reports[0]["backend"], images=n_images, per_image=per_image,
+         single_rank_per_image=single_per_image, summary=summary,
+         max_psnr_diff_db=d_psnr, max_ssim_diff=d_ssim, seconds=seconds,
+         launches=got, expected_launches=expected,
+         average_time_s=[r["result"]["time"] for r in reports],
+         peak_mem_gb=[r["peak_mem_gb"] for r in reports], card=card,
+         note=_sp_note(len(reports)))
+    if any(g != expected for g in got):
+        fail(f"--mode test --mesh_shape {mesh_shape}: launches per rank (K1, segment K1, K2, "
+             f"segment K2) {got}, expected {expected}")
+    if len(per_image) != n_images or len(summary) != 3:
+        fail(f"--mode test --mesh_shape {mesh_shape} printed {per_image} and {summary}")
+    if not (d_psnr <= 0.01 + 1e-9 and d_ssim <= 1e-4 + 1e-12):
+        fail(f"--mode test --mesh_shape {mesh_shape} vs one rank: PSNR {d_psnr} dB, "
+             f"SSIM {d_ssim}")
+    # each rank runs the layers outside the scans itself, and their cuDNN
+    # kernels may differ between two processes: the ranks agree to rounding
+    spread = max(r["result"]["psnr"] for r in reports) - min(r["result"]["psnr"] for r in reports)
+    if not spread <= 1e-6:
+        fail(f"the ranks' average PSNR differ by {spread} dB: {[r['result'] for r in reports]}")
+    return got[0][0], reports[0]["result"]["time"]
+
+
+def _sp_grad_rank(mesh, x, gt):
+    """One rank of ``phase_sp_train``'s gradient check: the full-width
+    seq-sharded ``1mlp_g2`` (seed 1234, no DropPath), one forward and
+    backward of :func:`smooth_loss` at batch 4 with its launch counts and
+    peak memory, then the times of a forward and a train step (with the
+    gradients' all-reduce) by CUDA events and their device profiles."""
+    from focalnet_tpu_torch.models import build_net
+    from focalnet_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bwd_cuda,
+        selective_scan_cuda,
+    )
+    from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+    from focalnet_tpu_torch.utils.profiling import device_profile
+
+    counters = (selective_scan_cuda, selective_scan_bwd_cuda)
+    model = build_net("1mlp_g2", device=mesh.device, drop_path_rate=0.0, seq_mesh=mesh,
+                      seq_axis="seq", data_axis="data",
+                      generator=torch.Generator().manual_seed(1234)).train()
+    x, gt = torch.from_numpy(x).to(mesh.device), torch.from_numpy(gt).to(mesh.device)
+    for c in counters:
+        c.launches = c.segment_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    smooth_loss(model(x), gt).backward()
+    torch.cuda.synchronize()
+    launches = [[c.launches, c.segment_launches] for c in counters]
+    grads = {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def forward():
+        with torch.no_grad():
+            model(x)
+
+    step = make_train_step(model, make_optimizer(model), mesh=mesh)
+    return dict(rank=mesh.rank, launches=launches, grads=grads, peak_mem_gb=peak,
+                backend=mesh.backend, forward_ms=time_ms(forward, reps=3, warmup=1),
+                step_ms=time_ms(lambda: step(x, gt), reps=3, warmup=1),
+                forward_profile=device_profile(forward, 2),
+                step_profile=device_profile(lambda: step(x, gt), 2))
+
+
+def phase_sp_train(build_net, cli_main, tmp, card):
+    """``--mesh_shape 1,2`` training of the full-width ``1mlp_g2`` at batch 4,
+    256x256, two ranks on the card:
+
+    - the first step's gradients (smooth_loss, no DropPath) on each rank
+      against the single-rank kernel model's, per parameter within
+      MODEL_GRAD_TOL (``phase_grad``'s limit); 24 segment K1 and 24 segment
+      K2 launches per rank; each rank's peak memory; the forward's and the
+      step's time by CUDA events and device profile on each rank;
+    - ``--mode train`` through the CLI for one epoch of 3 steps (validation
+      on 2 images, mesh-free): the parameters equal on both ranks after the
+      steps (a digest), 24 segment K1 and K2 launches a step per rank (and
+      48 dense K1 a validated image), finite losses in rank 0's log.
+
+    Returns rank 0's K1 and K2 launches of the CLI run."""
+    from focalnet_tpu_torch.data.reside import make_synthetic_dataset
+    from focalnet_tpu_torch.parallel import spawn
+
+    gen = torch.Generator().manual_seed(4321)
+    x = torch.rand(TRAIN_BATCH, 256, 256, 3, generator=gen)
+    gt = torch.rand(TRAIN_BATCH, 256, 256, 3, generator=gen)
+    model = build_net("1mlp_g2", device="cuda", drop_path_rate=0.0,
+                      generator=torch.Generator().manual_seed(1234)).train()
+    smooth_loss(model(x.cuda()), gt.cuda()).backward()
+    want = {k: p.grad for k, p in model.named_parameters()}
+    with _stdout_fd_to(os.path.join(tmp, "sp_grad.out")):
+        ranks = spawn(_sp_grad_rank, (1, SP_RANKS), "cuda", args=(x.numpy(), gt.numpy()),
+                      timeout_s=SP_TIMEOUT_S)
+    rel, ab = MODEL_GRAD_TOL
+    for r in ranks:
+        worst, worst_key, max_abs = 0.0, None, 0.0
+        for k, w in want.items():
+            err = float((torch.from_numpy(r["grads"][k]).cuda() - w).abs().max())
+            lim = rel * float(w.abs().max()) + ab
+            if not (err <= lim and np.isfinite(r["grads"][k]).all()):
+                fail(f"sp_train rank {r['rank']}: gradient of {k} vs one rank: max abs err "
+                     f"{err} > {lim}")
+            max_abs = max(max_abs, err)
+            if err / lim > worst:
+                worst, worst_key = err / lim, k
+        expected = [[SP_LAUNCHES_PER_FORWARD] * 2] * 2
+        emit(phase="sp_grad", mesh_shape=SP_MESH, rank=r["rank"], backend=r["backend"],
+             params=len(r["grads"]), max_abs_err=max_abs, max_err_over_limit=worst,
+             worst_param=worst_key, launches=r["launches"], expected_launches=expected,
+             peak_mem_gb=r["peak_mem_gb"], forward_ms=r["forward_ms"], step_ms=r["step_ms"],
+             forward_profile=r["forward_profile"], step_profile=r["step_profile"], card=card,
+             note=_sp_note(SP_RANKS))
+        if r["launches"] != expected or len(r["grads"]) != len(want):
+            fail(f"sp_grad rank {r['rank']}: launches (K1, segment K1), (K2, segment K2) "
+                 f"{r['launches']}, expected {expected}; {len(r['grads'])} gradients")
+    del model, want
+    torch.cuda.empty_cache()
+
+    data, out = os.path.join(tmp, "sp_data"), os.path.join(tmp, "sp_weights")
+    make_synthetic_dataset(data, n_train=6, n_test=1, hw=(256, 256), seed=0)
+    steps, val_images = 3, 2
+    reports, seconds = _sp_cli(cli_main, [
+        "--mode", "train", "--data_dir", data, "--batch_size", str(TRAIN_BATCH),
+        "--crop_size", "256", "--print_freq", "1", "--valid_freq", "1", "--num_worker", "4",
+        "--num_epoch", "1", "--model_save_dir", out,
+        "--result_dir", os.path.join(tmp, "sp_train_images")], tmp, "sp_train_cli")
+    got = [[r["launches_fwd"], r["segment_launches_fwd"], r["launches_bwd"],
+            r["segment_launches_bwd"]] for r in reports]
+    n = SP_LAUNCHES_PER_FORWARD * steps
+    expected = [n + LAUNCHES_PER_FORWARD * val_images, n, n, n]
+    digests = [r["result"]["param_sha256"] for r in reports]
+    with open(os.path.join(out, "train.metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [(r["pixel_loss"], r["fft_loss"]) for r in rows if "step" in r]
+    emit(phase="sp_train_cli", mesh_shape=SP_MESH, ranks=len(reports),
+         backend=reports[0]["backend"], steps=steps,
+         seconds=seconds, launches=got, expected_launches=expected, param_sha256=digests,
+         losses=losses, psnr=[r["psnr"] for r in rows if "psnr" in r],
+         peak_mem_gb=[r["peak_mem_gb"] for r in reports],
+         checkpoints=sorted(os.listdir(out)), card=card)
+    if any(g != expected for g in got):
+        fail(f"--mode train --mesh_shape {SP_MESH}: launches per rank (K1, segment K1, K2, "
+             f"segment K2) {got}, expected {expected}")
+    if len(set(digests)) != 1:
+        fail(f"--mode train --mesh_shape {SP_MESH}: the ranks' parameters differ: {digests}")
+    if len(losses) != steps or not all(math.isfinite(v) for r in losses for v in r):
+        fail(f"--mode train --mesh_shape {SP_MESH}: losses {losses}")
+    if not {"model.pkl", "Best.pkl", "Final.pkl"} <= set(os.listdir(out)):
+        fail(f"--mode train --mesh_shape {SP_MESH} wrote {sorted(os.listdir(out))}")
+    return got[0][1], got[0][3]
+
+
+def run_sp_only(cli_main, build_net, save_checkpoint, card):
+    """``python3 chip_smoke.py --sp_only``: the sequence-parallel phases alone,
+    on every card the machine has (NCCL when each rank has a card of its
+    own): ``--mode test`` at ``1,2``, and at ``1,4`` with four cards, against
+    one rank on a 2-GT synthetic 460x620 split, then ``phase_sp_train``."""
+    from focalnet_tpu_torch.data.reside import make_synthetic_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_synthetic_dataset(os.path.join(tmp, "sots"), n_train=2, n_test=2,
+                                      hw=SOTS_HW, seed=0)
+        ckpt = os.path.join(tmp, "model.pkl")
+        save_checkpoint(ckpt, build_net("1mlp_g2", device="cuda",
+                                        generator=torch.Generator().manual_seed(1234))
+                        .state_dict())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_main(["--mode", "test", "--data_dir", data, "--test_model", ckpt,
+                      "--result_dir", os.path.join(tmp, "test"),
+                      "--model_save_dir", os.path.join(tmp, "test_cfg")])
+        per_image, _ = _eval_lines(buf.getvalue())
+        for mesh_shape in (SP_MESH, "1,4")[:1 + (torch.cuda.device_count() >= 4)]:
+            phase_sp_test_cli(cli_main, tmp, ckpt, per_image, card, mesh_shape)
+        phase_sp_train(build_net, cli_main, tmp, card)
+
+
 def serve_run(main, ckpt, requests, out_dir, extra, ss_cuda, expect_forwards):
     """One ``--mode serve`` run through the CLI entry point, in this
     process so that the kernel's launch count is visible."""
@@ -1319,6 +1747,11 @@ def main():
          max_sm_clock_mhz=clock_mhz, torch=torch.__version__, cuda=torch.version.cuda,
          triton=has_triton, cuda_home=os.environ.get("CUDA_HOME"),
          nvcc=_build.find_nvcc(), python=sys.version.split()[0])
+    if "--sp_only" in sys.argv[1:]:
+        run_sp_only(cli_main, build_net, save_checkpoint, card)
+        print(card, flush=True)
+        emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})
+        return
 
     # 2. build from the checkout's sources: one nvcc per kernel, in parallel
     def timed_build(fn):
@@ -1373,6 +1806,10 @@ def main():
 
     worst_fma, timing_fma = phase_kernel_probe(fma_passes_cuda, fma_passes_ref)
 
+    worst_seg, worst_seg_bwd, timing_seg = phase_kernel_segment(
+        selective_scan, selective_scan_cuda, selective_scan_bwd_cuda, selective_scan_bwd_ref,
+        chunk_states_ref, clock_mhz, sms)
+
     # 4. the FMA-rate probe's path, with launch counts
     peak_tflops = 2 * FMA_LANES_PER_SM * sms * clock_mhz * 1e6 / 1e12
     probe_launches, jax_pair, wide = phase_vpu_probe(
@@ -1425,7 +1862,8 @@ def main():
         torch.cuda.empty_cache()
 
         # 6b. --mode test (SOTS-indoor protocol) and --mode infer through the CLI
-        test_avg_time, test_launches = phase_test_cli(cli_main, counters, tmp, ckpt, card)
+        test_avg_time, test_launches, test_per_image = phase_test_cli(cli_main, counters, tmp,
+                                                                      ckpt, card)
         infer_launches = phase_infer_cli(cli_main, counters, tmp, ckpt, rng)
 
         # 7. whole gradient and train step at batch 4, 256x256
@@ -1433,6 +1871,11 @@ def main():
 
         # 8. train through the CLI, then resume
         train_launches = phase_train_cli(cli_main, counters, tmp)
+
+        # 8b. sequence parallelism, --mesh_shape 1,2: --mode test and train
+        sp_test_launches, sp_test_time = phase_sp_test_cli(cli_main, tmp, ckpt,
+                                                           test_per_image, card)
+        sp_launches = phase_sp_train(build_net, cli_main, tmp, card)
 
         # 9. the other three presets: forwards, train steps, and through the CLI
         preset_launches = phase_presets(build_net, counters, card, smi, rng)
@@ -1479,6 +1922,27 @@ def main():
                  bound_by=t[3])
             for (k, b, L, rev, dt), t in sorted(timing_new.items()) if k == which]
     entries[0]["launches_vpu_probe"] = probe_launches["selective_scan_cuda"]
+    for name, src, line, err, launches, which in (
+        ("selective_scan_fwd_segment", SOURCE, 347, worst_seg, sp_launches[0], "fwd"),
+        ("selective_scan_bwd_segment", SOURCE_BWD, 421, worst_seg_bwd, sp_launches[1], "bwd"),
+    ):
+        ms, dense_ms, plain_ms, b, by = timing_seg[(which, TRAIN_BATCH, SP_LS[TRAIN_BATCH][0])]
+        entries.append(dict(
+            name=name, route="cuda", source=f"focalnet_tpu_torch/ops/csrc/{src}",
+            replaces=f"focalnet_tpu/ops/pallas_scan.py:{line}", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            library_ms=None,
+            shape=f"B={TRAIN_BATCH} D={SP_DIM} G={SP_GROUPS} N=16 L={SP_LS[TRAIN_BATCH][0]} "
+                  "fp32, forward direction, with chunk states (a rank's call in the "
+                  f"--mesh_shape {SP_MESH} train step)",
+            dense_ms=dense_ms, launches_per_rank_note="rank 0 of --mode train --mesh_shape "
+            f"{SP_MESH}, 3 steps",
+            lengths=[dict(batch=k[1], L=k[2], ms=t[0], dense_ms=t[1], plain_ms=t[2],
+                          bound_ms=t[3], bound_by=t[4])
+                     for k, t in sorted(timing_seg.items()) if k[0] == which],
+        ))
+    entries[-2]["launches_sp_test_cli"] = sp_test_launches
+    entries[-2]["sp_test_cli_average_time_s"] = sp_test_time
     P = 8 * PROBE_PATH_LOOPS[1]
     ms, plain_ms, b, by = timing_fma[P]
     entries.append(dict(

@@ -2,8 +2,9 @@
 of ``focalnet_tpu/configs.py``).
 
 The port keeps its own copy: it imports nothing of ``focalnet_tpu``.  Only the
-fields the port reads are here; the JAX config's mesh fields arrive with the
-parallelism slice (ROADMAP).
+fields the port reads are here, with the JAX defaults; of the JAX config's
+mesh fields, the sequence-parallel ones (``seq_axis``, ``data_axis``,
+``mesh_shape``, ``mesh_axes``) are here, ``tp_axis`` is not (ROADMAP).
 
     baseline  — conv ResBlock x 1 per stage, no outer residual
     1mlp      — VSSG, gl_merge=True, ps_global=4, ps_local=2
@@ -63,6 +64,11 @@ class ModelConfig:
     # auto: the CUDA kernel for CUDA tensors, the chunked scan for CPU tensors
     scan_backend: str = "auto"  # auto | cuda | chunked | ref
     compute_dtype: str = "float32"  # params fp32; bfloat16 activations opt-in
+    # multi-rank: mesh axis names for sequence-parallel SS2D scans (L = H*W is
+    # sharded over `seq_axis`; `data_axis` names the batch axis).  The mesh
+    # itself is passed to build_net(seq_mesh=...): it is not config.
+    seq_axis: Any = None    # Optional[str]
+    data_axis: Any = None   # Optional[str]
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -91,6 +97,10 @@ class TrainConfig:
     crop_size: int = 256
     seed: int = 1234
     model_save_dir: str = "results/weights"
+    # the process mesh: None (one process) or (data, seq) = (1, M), M ranks
+    # of sequence parallelism
+    mesh_shape: Any = None  # Optional[Tuple[int, ...]]
+    mesh_axes: Tuple[str, ...] = ("data",)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

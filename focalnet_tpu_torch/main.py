@@ -7,6 +7,7 @@ Usage:
     python -m focalnet_tpu_torch.main --mode serve --test_model <reference .pkl>
     python -m focalnet_tpu_torch.main --flops_report --mode serve
     python -m focalnet_tpu_torch.main --preset 1mlp --compute_dtype bfloat16 --ssm_out_dtype bfloat16
+    python -m focalnet_tpu_torch.main --mode test --mesh_shape 1,2 --test_model <pkl>
 
 ``--preset`` takes the JAX CLI's four (``baseline``, ``1mlp``, ``1mlp_g2``,
 ``1mlp_g4``) in every mode; ``--compute_dtype bfloat16 --ssm_out_dtype
@@ -18,15 +19,26 @@ results/weights/Best.pkl`` (the reference-format counterpart of JAX's Orbax
 runs ``--mode``.  Every mode writes the model and train configs to
 ``<model_save_dir>/config.json`` and makes ``--result_dir``, as the JAX CLI
 does.  Runs on the CUDA card unless ``--device cpu``.
+
+``--mesh_shape 1,M`` (``--mode test`` and ``train``) runs the mode on M ranks
+of a sequence-parallel mesh, one process each (``parallel.mesh.spawn``):
+every SS2D scan is sharded over L across them.  Rank 0 prints, logs and
+writes files; :func:`main` returns each rank's report (its kernel launches,
+peak memory and the mode's result).  Any other mesh shape, and a mesh under
+``--mode infer`` or ``serve``, raises: data parallelism and the sharded
+serving paths are ROADMAP.md Queue 1 item 6.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import io
 import json
 import os
 import random
+import sys
 
 import numpy as np
 import torch
@@ -35,8 +47,90 @@ import torch
 def main(argv=None, inp=None, out=None):
     """Parse ``argv`` and run; ``inp``/``out`` replace stdin/stdout (serve).
     Returns the report's numbers under ``--flops_report``, else what the
-    mode returns."""
+    mode returns; under ``--mesh_shape`` each rank's report (a list by rank,
+    or this rank's report when a process group is already running)."""
     args = parse_args(argv)
+    from focalnet_tpu_torch.parallel.mesh import parse_mesh_shape
+
+    mesh_shape = parse_mesh_shape(args.mesh_shape)
+    if mesh_shape:
+        return _run_mesh(args, argv, mesh_shape)
+    return _main(args, None, inp, out)
+
+
+def _run_mesh(args, argv, mesh_shape):
+    """``--mesh_shape``: check it, then run :func:`_rank_main` on every rank
+    of a new process group, or on this rank of the one that is running."""
+    import torch.distributed as dist
+
+    from focalnet_tpu_torch.parallel.mesh import check_shape, make_mesh, rank_device, spawn
+    from focalnet_tpu_torch.utils.device import resolve_device
+
+    check_shape(mesh_shape)
+    if args.mode not in ("test", "train"):
+        raise NotImplementedError(f"--mesh_shape under --mode {args.mode} is not ported "
+                                  "yet: ROADMAP.md Queue 1 item 6")
+    device_type = resolve_device(args.device or None).type
+    if dist.is_initialized():
+        return _rank_main(make_mesh(mesh_shape, device=rank_device(dist.get_rank(),
+                                                                   device_type)), argv)
+    return spawn(_rank_main, mesh_shape, device_type, args=(argv,))
+
+
+def _rank_main(mesh, argv):
+    """One rank of ``--mesh_shape``: the mode on ``mesh``, then this rank's
+    report: its K1 and K2 launches (all, and those of the segment API), its
+    device's peak memory (GB; None on the CPU), the mode's result (under
+    ``--mode train`` a digest of the parameters) and what it printed."""
+    from focalnet_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bwd_cuda,
+        selective_scan_cuda,
+    )
+
+    counters = (selective_scan_cuda, selective_scan_bwd_cuda)
+    before = [(c.launches, c.segment_launches) for c in counters]
+    printed, stdout = io.StringIO(), sys.stdout
+    sys.stdout = _Tee(stdout, printed)
+    try:
+        result = _main(parse_args(argv), mesh)
+    finally:
+        sys.stdout = stdout
+    if isinstance(result, tuple):  # train: (model, optimizer)
+        digest = hashlib.sha256()
+        for k, v in result[0].state_dict().items():
+            digest.update(k.encode())
+            digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+        result = {"param_sha256": digest.hexdigest()}
+    (fwd, fwd_seg), (bwd, bwd_seg) = [(c.launches - n, c.segment_launches - m)
+                                      for c, (n, m) in zip(counters, before)]
+    return {
+        "rank": mesh.rank, "backend": mesh.backend,
+        "launches_fwd": fwd, "launches_bwd": bwd,
+        "segment_launches_fwd": fwd_seg, "segment_launches_bwd": bwd_seg,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                        if mesh.device.type == "cuda" else None),
+        "result": result,
+        "stdout": printed.getvalue(),
+    }
+
+
+class _Tee(io.TextIOBase):
+    """A text stream that writes to every one of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def _main(args, mesh, inp=None, out=None):
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -44,7 +138,7 @@ def main(argv=None, inp=None, out=None):
     from focalnet_tpu_torch.configs import PRESETS, TrainConfig
     from focalnet_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device or None)
+    device = mesh.device if mesh is not None else resolve_device(args.device or None)
     overrides = {}
     if args.compute_dtype:
         overrides["compute_dtype"] = args.compute_dtype
@@ -56,7 +150,11 @@ def main(argv=None, inp=None, out=None):
         overrides["ssm_d_state"] = args.ssm_d_state
     if args.scan_backend:
         overrides["scan_backend"] = args.scan_backend
+    if mesh is not None:
+        overrides.update(seq_axis="seq", data_axis="data")
     train_cfg = TrainConfig(
+        mesh_shape=tuple(mesh.shape.values()) if mesh else None,
+        mesh_axes=tuple(mesh.shape) if mesh else ("data",),
         data_dir=args.data_dir, batch_size=args.batch_size,
         learning_rate=args.learning_rate, num_epoch=args.num_epoch,
         grad_accum=args.grad_accum, print_freq=args.print_freq,
@@ -65,27 +163,31 @@ def main(argv=None, inp=None, out=None):
         crop_size=args.crop_size, seed=args.seed,
         model_save_dir=args.model_save_dir,
     )
-    os.makedirs(args.model_save_dir, exist_ok=True)
-    os.makedirs(args.result_dir, exist_ok=True)
-    with open(os.path.join(args.model_save_dir, "config.json"), "w") as f:
-        json.dump({"model": dataclasses.asdict(PRESETS[args.preset].replace(**overrides)),
-                   "train": dataclasses.asdict(train_cfg)}, f, indent=2)
-    report = _flops_report(args.preset, device, overrides) if args.flops_report else None
-    result = _run_mode(args, train_cfg, device, overrides, inp, out)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        os.makedirs(args.model_save_dir, exist_ok=True)
+        os.makedirs(args.result_dir, exist_ok=True)
+        with open(os.path.join(args.model_save_dir, "config.json"), "w") as f:
+            json.dump({"model": dataclasses.asdict(PRESETS[args.preset].replace(**overrides)),
+                       "train": dataclasses.asdict(train_cfg)}, f, indent=2)
+    report = (_flops_report(args.preset, device, overrides)
+              if args.flops_report and lead else None)
+    result = _run_mode(args, train_cfg, device, overrides, inp, out, mesh)
     return report if report is not None else result
 
 
-def _run_mode(args, train_cfg, device, overrides, inp, out):
-    """``--mode train``, ``test``, ``infer`` or ``serve``."""
+def _run_mode(args, train_cfg, device, overrides, inp, out, mesh=None):
+    """``--mode train``, ``test``, ``infer`` or ``serve`` (under a ``mesh``:
+    train and test, on this rank)."""
     from focalnet_tpu_torch.models import build_net
 
     if args.mode == "train":
         from focalnet_tpu_torch.train import train
 
-        model = build_net(args.preset, device=device,
+        model = build_net(args.preset, device=device, seq_mesh=mesh,
                           generator=torch.Generator().manual_seed(args.seed), **overrides)
         return train(model, train_cfg, resume=args.resume or None,
-                     log_file=os.path.join(args.model_save_dir, "train.log"))
+                     log_file=os.path.join(args.model_save_dir, "train.log"), mesh=mesh)
 
     from focalnet_tpu_torch.utils.convert import load_checkpoint
 
@@ -95,14 +197,15 @@ def _run_mode(args, train_cfg, device, overrides, inp, out):
         raise SystemExit("error: --mode infer needs --input <image file or directory>")
     if args.mode != "test" and (args.pad_factor % 32 or args.pad_factor <= 0):
         raise SystemExit("error: --pad_factor must be a positive multiple of 32")
-    model = build_net(args.preset, device=device, **overrides)
+    model = build_net(args.preset, device=device, seq_mesh=mesh, **overrides)
     model.load_state_dict(load_checkpoint(args.test_model), strict=True)
 
     if args.mode == "test":
         from focalnet_tpu_torch.evaluation.evaluator import evaluate
 
+        # every rank runs the forwards (they are collective); rank 0 saves
         return evaluate(model, args.data_dir, result_dir=args.result_dir,
-                        save_images=args.save_image)
+                        save_images=args.save_image and (mesh is None or mesh.rank == 0))
     if args.mode == "infer":
         from focalnet_tpu_torch.evaluation.infer import infer
 
@@ -194,6 +297,13 @@ def parse_args(argv=None):
                         "(test, infer and serve too) writes config.json here, "
                         "over a training run's")
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--mesh_shape", type=str, default="",
+                   help="device mesh, comma ints: '' = auto DP over all "
+                        "devices dividing batch_size; '4' = DP over 4; "
+                        "'2,4' = dp x sp (batch on data, SS2D scans "
+                        "sequence-sharded over seq).  The port runs '' (one "
+                        "process) and '1,M' (--mode test and train on M "
+                        "ranks, one process each); the others raise")
     p.add_argument("--flops_report", action="store_true",
                    help="print params and GFLOPs at 256x256, then run --mode")
     p.add_argument("--compute_dtype", type=str, default="",

@@ -10,6 +10,8 @@ outputs back to the input's dtype at the end; parameters stay fp32.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -36,7 +38,7 @@ class StageStack(nn.Module):
     ``block_type="resblock"`` (the ``baseline`` preset) ``num_res`` ResBlocks
     and no outer residual, as the reference's baseline snapshot has it."""
 
-    def __init__(self, channels: int, cfg: ModelConfig):
+    def __init__(self, channels: int, cfg: ModelConfig, seq_mesh=None):
         super().__init__()
         c = cfg
         self.residual = c.block_type == "vssg"
@@ -59,6 +61,7 @@ class StageStack(nn.Module):
                 use_checkpoint=c.use_checkpoint,
                 ssm_proj_dtype=config_dtype(c.ssm_proj_dtype),
                 ssm_out_dtype=config_dtype(c.ssm_out_dtype),
+                seq_mesh=seq_mesh, seq_axis=c.seq_axis,
             )
             for _ in range(c.num_res)
         ])
@@ -71,9 +74,11 @@ class StageStack(nn.Module):
 
 
 class MIMOUNet(nn.Module):
-    """3-scale MIMO-UNet, dims (32, 64, 128)."""
+    """3-scale MIMO-UNet, dims (32, 64, 128).  ``seq_mesh``: the
+    :class:`focalnet_tpu_torch.parallel.Mesh` of ``cfg.seq_axis``'s
+    sequence-parallel SS2D scans (not config; no parameters)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, seq_mesh=None):
         super().__init__()
         if cfg.scan_backend not in SCAN_BACKENDS:
             raise ValueError(
@@ -81,7 +86,7 @@ class MIMOUNet(nn.Module):
         self.cfg = cfg
         self.compute_dtype = config_dtype(cfg.compute_dtype)
         d0, d1, d2 = cfg.dims
-        self.Encoder = nn.ModuleList([StageStack(d, cfg) for d in (d0, d1, d2)])
+        self.Encoder = nn.ModuleList([StageStack(d, cfg, seq_mesh) for d in (d0, d1, d2)])
         self.feat_extract = nn.ModuleList([
             BasicConv(3, d0, 3, act=True),
             BasicConv(d0, d1, 3, stride=2, act=True),
@@ -90,7 +95,7 @@ class MIMOUNet(nn.Module):
             BasicConv(d1, d0, 4, stride=2, act=True, transpose=True),
             BasicConv(d0, 3, 3, act=False),
         ])
-        self.Decoder = nn.ModuleList([StageStack(d, cfg) for d in (d2, d1, d0)])
+        self.Decoder = nn.ModuleList([StageStack(d, cfg, seq_mesh) for d in (d2, d1, d0)])
         self.Convs = nn.ModuleList([
             BasicConv(2 * d1, d1, 1, act=True),
             BasicConv(2 * d0, d0, 1, act=True),
@@ -142,14 +147,33 @@ class MIMOUNet(nn.Module):
         return [o.permute(0, 2, 3, 1).to(in_dtype) for o in outputs]
 
 
-def build_net(preset: str = "1mlp_g2", device=None, generator=None,
+def build_net(preset: str = "1mlp_g2", device=None, generator=None, seq_mesh=None,
               **overrides) -> MIMOUNet:
     """Build ``preset`` (with config ``overrides``) in eval mode on ``device``
     (default: the CUDA card; without one this raises), its weights drawn by
-    the reference init laws from ``generator`` (default: seed 0)."""
+    the reference init laws from ``generator`` (default: seed 0).
+    ``seq_mesh``: the mesh of the sequence-parallel scans (pass
+    ``seq_axis``/``data_axis`` as overrides)."""
     device = resolve_device(device)
     cfg = PRESETS[preset].replace(**overrides)
-    model = MIMOUNet(cfg)
+    model = MIMOUNet(cfg, seq_mesh)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
     return model.to(device).eval()
+
+
+@contextlib.contextmanager
+def mesh_free(model: nn.Module):
+    """Within the block every SS2D of ``model`` runs its dense path (the
+    JAX package's mesh-free twin with the same parameters)."""
+    from focalnet_tpu_torch.models.ss2d import SS2D
+
+    ops = [m for m in model.modules() if isinstance(m, SS2D)]
+    meshes = [m.seq_mesh for m in ops]
+    for m in ops:
+        m.seq_mesh = None
+    try:
+        yield model
+    finally:
+        for m, mesh in zip(ops, meshes):
+            m.seq_mesh = mesh

@@ -1,9 +1,9 @@
 """SS2D — the 2-D selective-scan operator (counterpart of ``focalnet_tpu/models/ss2d.py``).
 
 in_proj -> x/z split -> depthwise 3x3 -> SiLU -> 4-direction selective scan
--> out_norm LayerNorm -> gate by z -> out_proj.  Only the dense path of the
-JAX module is here; its sequence- and tensor-parallel branches wait for the
-parallelism slice (ROADMAP).
+-> out_norm LayerNorm -> gate by z -> out_proj.  The dense path and the
+sequence-parallel one (``seq_axis`` with a ``seq_mesh``) of the JAX module
+are here; its tensor-parallel branch is not (ROADMAP).
 
 Precision (the JAX module's ``dtype``, ``proj_dtype``, ``ssm_out_dtype``):
 the activations arrive in the model's compute dtype and every product runs
@@ -20,7 +20,10 @@ rows k*d_inner:(k+1)*d_inner): k = 0 row raster, 1 column raster, 2 row
 raster reversed, 3 column raster reversed.  Per raster the projections run
 once on the raster's own (B, D, L) operand, and the reversed direction is
 the scan's ``reverse`` mode on the same operands with the forward
-direction's output as ``y_accum``.
+direction's output as ``y_accum``.  The sequence-parallel path stacks the
+two rasters into one (B, 2 d_inner, L) operand with two B/C groups and makes
+two sequence-sharded calls, the forward pair and the reversed pair, whose
+outputs it adds (JAX's stacked-pair form).
 """
 
 from __future__ import annotations
@@ -164,7 +167,7 @@ class SS2D(nn.Module):
                  act="silu", d_conv=3, conv_bias=True, dropout=0.0, bias=False,
                  dt_min=0.001, dt_max=0.1, dt_scale=1.0, dt_init_floor=1e-4,
                  initialize="v0", forward_type="v4", scan_backend="auto",
-                 proj_dtype=None, out_dtype=None):
+                 proj_dtype=None, out_dtype=None, seq_mesh=None, seq_axis=None):
         super().__init__()
         flags = parse_forward_type(forward_type)
         if flags["out_norm"] != "ln" or flags["disable_z"] or flags["disable_z_act"]:
@@ -183,6 +186,9 @@ class SS2D(nn.Module):
         self.out_dtype = out_dtype or torch.float32
         self.dt_scale = dt_scale
         self.dt_range = (dt_min, dt_max, dt_init_floor)
+        # the sequence-parallel scans: a parallel.Mesh (not a module: it holds
+        # no parameters, and the state dict does not change)
+        self.seq_mesh, self.seq_axis = seq_mesh, seq_axis
 
         self.in_proj = Linear(d_model, 2 * D, bias=bias)
         self.conv2d = Conv2d(D, D, d_conv, padding=(d_conv - 1) // 2,
@@ -221,6 +227,8 @@ class SS2D(nn.Module):
         A = -torch.exp(self.A_logs.float())  # (4D, N), k-major rows
         Ds = self.Ds.float()
         bias = self.dt_projs_bias.reshape(-1).float()
+        if self.seq_axis is not None and self.seq_mesh is not None:
+            return self._core_seq(x, A, Ds, bias)
 
         y = None
         for i, col in enumerate((False, True)):
@@ -245,6 +253,37 @@ class SS2D(nn.Module):
                        y_accum=dscan(dts_f, Bs_f, Cs_f, i, False))
             yr = ys.reshape(Bsz, D, W, H).transpose(2, 3) if col else ys.reshape(Bsz, D, H, W)
             y = yr if y is None else y + yr
+        return self.out_norm(y.permute(0, 2, 3, 1).float()).to(x.dtype)
+
+    def _core_seq(self, x, A, Ds, bias):
+        """``_core`` with every scan sharded over L across the mesh's
+        ``seq_axis`` (L a multiple of its size): the row and column rasters
+        stacked into one (B, 2D, L) operand, G = 2 B/C groups, one call for
+        the forward pair (k = 0, 1) and one reversed for the other (k = 2, 3)."""
+        from focalnet_tpu_torch.parallel.seq_scan import selective_scan_seq_sharded
+
+        Bsz, D, H, W = x.shape
+        N, R, L = self.d_state, self.rank, H * W
+        x2 = torch.stack([x.reshape(Bsz, D, L), x.transpose(2, 3).reshape(Bsz, D, L)],
+                         dim=1)  # (B, 2, D, L)
+
+        def scan(k0, reverse):
+            # dt, B, C of directions k0 (row) and k0 + 1 (column)
+            ks = slice(k0, k0 + 2)
+            xd = self._project(self.x_proj_weight[ks], x2, x.dtype)  # (B, 2, R+2N, L)
+            dts, Bs, Cs = torch.split(xd, [R, N, N], dim=2)
+            delta = self._project(self.dt_projs_weight[ks], dts, x.dtype)  # (B, 2, D, L)
+            rows = slice(k0 * D, (k0 + 2) * D)
+            return selective_scan_seq_sharded(
+                x2.reshape(Bsz, 2 * D, L), delta.reshape(Bsz, 2 * D, L), A[rows],
+                Bs.contiguous(), Cs.contiguous(), D=Ds[rows], delta_bias=bias[rows],
+                delta_softplus=True, mesh=self.seq_mesh, out_dtype=self.out_dtype,
+                backend=self.scan_backend, reverse=reverse,
+            ).reshape(Bsz, 2, D, L)
+
+        ys_f = scan(0, False)
+        ys = scan(2, True) + ys_f
+        y = ys[:, 0].reshape(Bsz, D, H, W) + ys[:, 1].reshape(Bsz, D, W, H).transpose(2, 3)
         return self.out_norm(y.permute(0, 2, 3, 1).float()).to(x.dtype)
 
     def forward(self, x):

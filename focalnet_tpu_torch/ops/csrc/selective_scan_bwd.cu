@@ -17,6 +17,16 @@
 // dy (batch, dim, L) fp32 and hchk (batch, dim, n_chunks, N) fp32, the state
 // entering each 256-element chunk that the forward kernel saved.
 //
+// The segment API (the TPU kernel's with_state branch): a non-null dh_last
+// (batch, dim, N) fp32, the cotangent of the forward's h_last (the state
+// after the last item in scan order), seeds the adjoint carry, since
+// G_last = C dy + dh_last; a non-null dh0 (batch, dim, N) fp32 receives the
+// carry left after the walk's last item, a_first G_first: the cotangent of
+// the state h0 that seeded the forward (whose chunk states, hchk, start
+// from it). The ragged tail's items have a = 1 and C dy = 0, so the seed
+// passes them unchanged. Null dh_last and dh0 keep the plain adjoint's code
+// path and results.
+//
 // What bounds it on an H100: the data moves once (u, delta, dy, du, ddelta,
 // B, C, dB, dC: about 67 MB at L = 16384, dim = 192, N = 16 in fp32, ~20 us at
 // 3.35 TB/s), and dim * N * L exponentials go through the special-function
@@ -124,7 +134,8 @@ selective_scan_bwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
                           const float* __restrict__ dy, InT* __restrict__ du,
                           InT* __restrict__ ddelta, float* __restrict__ dA,
                           float* __restrict__ dB, float* __restrict__ dC,
-                          float* __restrict__ dD, float* __restrict__ dbias, int dim,
+                          float* __restrict__ dD, float* __restrict__ dbias,
+                          const float* __restrict__ dhlast, float* __restrict__ dh0, int dim,
                           int groups, int N, int L, int softplus, int reverse, int vec_in,
                           int vec_dbc) {
   // dynamic, fp32: s_gb, s_gaa [2][N][kPad] (G B and G h_{l-1} a A per
@@ -192,10 +203,13 @@ selective_scan_bwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
     cp_async_commit();
   };
 
+  // gcarry: a_first * G_first of the chunk processed before (the same in
+  // every lane); before the first chunk, the cotangent of the leaving state
   float gcarry[T], dA_acc[T];
+  const size_t state0 = ((size_t)b * dim + d0) * N + n;  // channel d0 + t: state0 + t N
 #pragma unroll
   for (int t = 0; t < T; ++t) {
-    gcarry[t] = 0.f;  // a_first * G_first of the chunk processed before
+    gcarry[t] = dhlast ? dhlast[state0 + (size_t)t * N] : 0.f;
     dA_acc[t] = 0.f;
   }
   for (int k = tid; k < 2 * T * nthreads; k += nthreads) s_acc[k] = 0.f;
@@ -370,6 +384,7 @@ selective_scan_bwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
   for (int t = 0; t < T; ++t) {
     const float sa = warp_sum(dA_acc[t]);
     if (lane == 0) atomicAdd(dA + (size_t)(d0 + t) * N + n, sa);
+    if (dh0 && lane == 0) dh0[state0 + (size_t)t * N] = gcarry[t];
   }
   __syncthreads();
   // dD, dbias: warp w sums rows w, w + N, ... of s_acc (row j: channel j % T,
@@ -422,9 +437,9 @@ template <typename InT, int T>
 cudaError_t launch_tile(const void* u, const void* delta, const float* A, const void* B,
                         const void* C, const float* Dskip, const float* bias,
                         const float* hchk, const float* dy, void* du, void* ddelta, float* dA,
-                        float* dB, float* dC, float* dD, float* dbias, int batch, int dim,
-                        int groups, int N, int L, int softplus, int reverse,
-                        cudaStream_t stream) {
+                        float* dB, float* dC, float* dD, float* dbias, const float* dhlast,
+                        float* dh0, int batch, int dim, int groups, int N, int L, int softplus,
+                        int reverse, cudaStream_t stream) {
   // 16-byte copies and vector atomics: rows of L elements stay aligned when L
   // is a multiple of the elements in 16 bytes, and the bases are
   const int vec_in = L % 8 == 0 && aligned16(u) && aligned16(delta) && aligned16(dy) &&
@@ -435,8 +450,8 @@ cudaError_t launch_tile(const void* u, const void* delta, const float* A, const 
   selective_scan_bwd_kernel<InT, T><<<grid, block, smem_bytes<InT>(T, N), stream>>>(
       static_cast<const InT*>(u), static_cast<const InT*>(delta), A,
       static_cast<const InT*>(B), static_cast<const InT*>(C), Dskip, bias, hchk, dy,
-      static_cast<InT*>(du), static_cast<InT*>(ddelta), dA, dB, dC, dD, dbias, dim, groups,
-      N, L, softplus, reverse, vec_in, vec_dbc);
+      static_cast<InT*>(du), static_cast<InT*>(ddelta), dA, dB, dC, dD, dbias, dhlast, dh0, dim,
+      groups, N, L, softplus, reverse, vec_in, vec_dbc);
   return cudaGetLastError();
 }
 
@@ -444,14 +459,14 @@ template <typename InT>
 cudaError_t launch(const void* u, const void* delta, const float* A, const void* B,
                    const void* C, const float* Dskip, const float* bias, const float* hchk,
                    const float* dy, void* du, void* ddelta, float* dA, float* dB, float* dC,
-                   float* dD, float* dbias, int batch, int dim, int groups, int N, int L,
-                   int softplus, int reverse, cudaStream_t stream) {
+                   float* dD, float* dbias, const float* dhlast, float* dh0, int batch, int dim,
+                   int groups, int N, int L, int softplus, int reverse, cudaStream_t stream) {
   cudaError_t err;
   const int T = tile_channels<BwdTiles<InT>>(kTiles, batch, dim, groups, N, &err);
   if (err != cudaSuccess) return err;
 #define FOCALNET_LAUNCH_TILE(T)                                                             \
   launch_tile<InT, T>(u, delta, A, B, C, Dskip, bias, hchk, dy, du, ddelta, dA, dB, dC, dD,   \
-                      dbias, batch, dim, groups, N, L, softplus, reverse, stream)
+                      dbias, dhlast, dh0, batch, dim, groups, N, L, softplus, reverse, stream)
   switch (T) {
     case 6: return FOCALNET_LAUNCH_TILE(6);
     case 4: return FOCALNET_LAUNCH_TILE(4);
@@ -489,13 +504,15 @@ const char* focalnet_scan_bwd_error_string(int code) {
 // Launches on `stream` and returns the first CUDA error of the launch (0 =
 // launched). dA, dB, dC and the non-null dD, dbias must be zeroed by the
 // caller: the kernel adds into them. Null Dskip / bias: no skip, no bias;
-// null dD / dbias: that gradient is not summed.
-int focalnet_selective_scan_bwd(const void* u, const void* delta, const void* A,
-                                const void* B, const void* C, const void* Dskip,
-                                const void* bias, const void* hchk, const void* dy, void* du,
-                                void* ddelta, void* dA, void* dB, void* dC, void* dD,
-                                void* dbias, int batch, int dim, int groups, int dstate,
-                                int L, int softplus, int reverse, int in_bf16, void* stream) {
+// null dD / dbias: that gradient is not summed; null dhlast: the adjoint
+// starts at zero; null dh0: the final carry is not written.
+int focalnet_selective_scan_bwd_state(const void* u, const void* delta, const void* A,
+                                      const void* B, const void* C, const void* Dskip,
+                                      const void* bias, const void* hchk, const void* dy,
+                                      void* du, void* ddelta, void* dA, void* dB, void* dC,
+                                      void* dD, void* dbias, const void* dhlast, void* dh0,
+                                      int batch, int dim, int groups, int dstate, int L,
+                                      int softplus, int reverse, int in_bf16, void* stream) {
   if (batch < 1 || batch > 65535 || dim < 1 || groups < 1 || dim % groups != 0 ||
       dstate < 1 || dstate > kMaxN || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -510,14 +527,29 @@ int focalnet_selective_scan_bwd(const void* u, const void* delta, const void* A,
   float* dCf = static_cast<float*>(dC);
   float* dDf = static_cast<float*>(dD);
   float* dbf = static_cast<float*>(dbias);
+  const float* dhl = static_cast<const float*>(dhlast);
+  float* dh0f = static_cast<float*>(dh0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       in_bf16 ? launch<__nv_bfloat16>(u, delta, Af, B, C, Df, bf, hc, dyf, du, ddelta, dAf,
-                                      dBf, dCf, dDf, dbf, batch, dim, groups, dstate, L,
-                                      softplus, reverse, s)
+                                      dBf, dCf, dDf, dbf, dhl, dh0f, batch, dim, groups, dstate,
+                                      L, softplus, reverse, s)
               : launch<float>(u, delta, Af, B, C, Df, bf, hc, dyf, du, ddelta, dAf, dBf, dCf,
-                              dDf, dbf, batch, dim, groups, dstate, L, softplus, reverse, s);
+                              dDf, dbf, dhl, dh0f, batch, dim, groups, dstate, L, softplus,
+                              reverse, s);
   return static_cast<int>(err);
+}
+
+// The plain adjoint: the launch above with no dhlast and no dh0.
+int focalnet_selective_scan_bwd(const void* u, const void* delta, const void* A,
+                                const void* B, const void* C, const void* Dskip,
+                                const void* bias, const void* hchk, const void* dy, void* du,
+                                void* ddelta, void* dA, void* dB, void* dC, void* dD,
+                                void* dbias, int batch, int dim, int groups, int dstate,
+                                int L, int softplus, int reverse, int in_bf16, void* stream) {
+  return focalnet_selective_scan_bwd_state(u, delta, A, B, C, Dskip, bias, hchk, dy, du, ddelta,
+                                           dA, dB, dC, dD, dbias, nullptr, nullptr, batch, dim,
+                                           groups, dstate, L, softplus, reverse, in_bf16, stream);
 }
 
 }  // extern "C"

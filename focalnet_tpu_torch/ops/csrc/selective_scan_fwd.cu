@@ -16,6 +16,15 @@
 // kernel (selective_scan_bwd.cu) rematerialises h from it. A NULL hchk
 // (serving) writes nothing.
 //
+// The segment API (the TPU kernel's with_state branch): a non-null h0
+// (batch, dim, N) fp32 seeds the state instead of zeros, and so also the
+// chunk states; a non-null h_last (batch, dim, N) fp32 receives the state
+// after the last item in scan order (position L-1, or 0 under `reverse`).
+// The ragged tail's items are the monoid's identity (see below), so the
+// carry that leaves the last chunk is that state. The sequence-sharded scan
+// (focalnet_tpu_torch/parallel/seq_scan.py) chains segments with it. Null
+// h0 and h_last keep the plain scan's code path and results.
+//
 // What bounds it on an H100: the data moves once (u, delta, y, B, C: about
 // 40 MB at L = 16384, dim = 192, N = 16 in fp32, ~12 us at 3.35 TB/s), and
 // dim * N * L exponentials go through the special-function units (50 M at
@@ -90,7 +99,8 @@ selective_scan_fwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
                           const float* __restrict__ A, const InT* __restrict__ Bm,
                           const InT* __restrict__ Cm, const float* __restrict__ Dskip,
                           const float* __restrict__ bias, const OutT* __restrict__ yacc,
-                          OutT* __restrict__ y, float* __restrict__ hchk, int dim,
+                          OutT* __restrict__ y, float* __restrict__ hchk,
+                          const float* __restrict__ h0, float* __restrict__ hlast, int dim,
                           int groups, int N, int L, int softplus, int reverse, int vec) {
   // dynamic, fp32: s_ch [T][N][kPad] (C h per channel and state), the
   // tile's rows s_dt, s_du, s_y [T][kPad] (dt, dt u, D u + y_accum); then the
@@ -148,10 +158,11 @@ selective_scan_fwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
   };
 
   float A_n[T], carry[T];  // carry: h_n entering the chunk, the same in every lane
+  const size_t state0 = ((size_t)b * dim + d0) * N + n;  // channel d0 + t: state0 + t N
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     A_n[t] = A[(size_t)(d0 + t) * N + n];
-    carry[t] = 0.f;
+    carry[t] = h0 ? h0[state0 + (size_t)t * N] : 0.f;
   }
   const int e0 = lane * kNItems;
   const int s0 = vidx(e0);  // this lane's items in a padded row
@@ -262,6 +273,10 @@ selective_scan_fwd_kernel(const InT* __restrict__ u, const InT* __restrict__ del
       }
     }
   }
+  if (hlast && lane == 0) {
+#pragma unroll
+    for (int t = 0; t < T; ++t) hlast[state0 + (size_t)t * N] = carry[t];
+  }
 }
 
 template <typename InT, typename OutT>
@@ -300,8 +315,9 @@ int last_tile = 0;  // the tile of the last launch
 template <typename InT, typename OutT, int T>
 cudaError_t launch_tile(const void* u, const void* delta, const float* A, const void* B,
                         const void* C, const float* Dskip, const float* bias, const void* yacc,
-                        void* y, float* hchk, int batch, int dim, int groups, int N, int L,
-                        int softplus, int reverse, cudaStream_t stream) {
+                        void* y, float* hchk, const float* h0, float* hlast, int batch, int dim,
+                        int groups, int N, int L, int softplus, int reverse,
+                        cudaStream_t stream) {
   // 16-byte copies: rows of L elements stay aligned when L is a multiple of
   // the elements in 16 bytes, and the bases are
   const int vec = L % 8 == 0 && aligned16(u) && aligned16(delta) && aligned16(B) &&
@@ -311,23 +327,23 @@ cudaError_t launch_tile(const void* u, const void* delta, const float* A, const 
   selective_scan_fwd_kernel<InT, OutT, T><<<grid, block, smem_bytes<InT, OutT>(T, N), stream>>>(
       static_cast<const InT*>(u), static_cast<const InT*>(delta), A,
       static_cast<const InT*>(B), static_cast<const InT*>(C), Dskip, bias,
-      static_cast<const OutT*>(yacc), static_cast<OutT*>(y), hchk, dim, groups, N, L,
-      softplus, reverse, vec);
+      static_cast<const OutT*>(yacc), static_cast<OutT*>(y), hchk, h0, hlast, dim, groups, N,
+      L, softplus, reverse, vec);
   return cudaGetLastError();
 }
 
 template <typename InT, typename OutT>
 cudaError_t launch(const void* u, const void* delta, const float* A, const void* B,
                    const void* C, const float* Dskip, const float* bias, const void* yacc,
-                   void* y, float* hchk, int batch, int dim, int groups, int N, int L,
-                   int softplus, int reverse, cudaStream_t stream) {
+                   void* y, float* hchk, const float* h0, float* hlast, int batch, int dim,
+                   int groups, int N, int L, int softplus, int reverse, cudaStream_t stream) {
   cudaError_t err;
   const int T = tile_channels<FwdTiles<InT, OutT>>(kFwdTiles, batch, dim, groups, N, &err);
   if (err != cudaSuccess) return err;
   last_tile = T;
 #define FOCALNET_LAUNCH_TILE(T)                                                         \
-  launch_tile<InT, OutT, T>(u, delta, A, B, C, Dskip, bias, yacc, y, hchk, batch, dim, \
-                            groups, N, L, softplus, reverse, stream)
+  launch_tile<InT, OutT, T>(u, delta, A, B, C, Dskip, bias, yacc, y, hchk, h0, hlast, \
+                            batch, dim, groups, N, L, softplus, reverse, stream)
   switch (T) {
     case 6: return FOCALNET_LAUNCH_TILE(6);
     case 4: return FOCALNET_LAUNCH_TILE(4);
@@ -377,13 +393,14 @@ int focalnet_selective_scan_fwd_last_tile() { return last_tile; }
 
 // Launches on `stream` and returns the first CUDA error of the launch (0 =
 // launched). Null Dskip / bias / yacc mean: no skip, no bias, nothing to
-// accumulate; a null hchk: no chunk states.
-int focalnet_selective_scan_fwd(const void* u, const void* delta, const void* A,
-                                const void* B, const void* C, const void* Dskip,
-                                const void* bias, const void* yacc, void* y, void* hchk,
-                                int batch, int dim, int groups, int dstate, int L,
-                                int softplus, int reverse, int in_bf16, int out_bf16,
-                                void* stream) {
+// accumulate; a null hchk: no chunk states; null h0 / hlast: the state starts
+// at zero / is not written.
+int focalnet_selective_scan_fwd_state(const void* u, const void* delta, const void* A,
+                                      const void* B, const void* C, const void* Dskip,
+                                      const void* bias, const void* yacc, void* y, void* hchk,
+                                      const void* h0, void* hlast, int batch, int dim,
+                                      int groups, int dstate, int L, int softplus, int reverse,
+                                      int in_bf16, int out_bf16, void* stream) {
   if (batch < 1 || batch > 65535 || dim < 1 || groups < 1 || dim % groups != 0 ||
       dstate < 1 || dstate > kMaxN || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -392,21 +409,37 @@ int focalnet_selective_scan_fwd(const void* u, const void* delta, const void* A,
   const float* Df = static_cast<const float*>(Dskip);
   const float* bf = static_cast<const float*>(bias);
   float* hc = static_cast<float*>(hchk);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hl = static_cast<float*>(hlast);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_bf16) {
     err = out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(u, delta, Af, B, C, Df, bf, yacc, y, hc,
-                                                          batch, dim, groups, dstate, L,
+                                                          h0f, hl, batch, dim, groups, dstate, L,
                                                           softplus, reverse, s)
-                   : launch<__nv_bfloat16, float>(u, delta, Af, B, C, Df, bf, yacc, y, hc, batch,
-                                                  dim, groups, dstate, L, softplus, reverse, s);
+                   : launch<__nv_bfloat16, float>(u, delta, Af, B, C, Df, bf, yacc, y, hc, h0f,
+                                                  hl, batch, dim, groups, dstate, L, softplus,
+                                                  reverse, s);
   } else {
-    err = out_bf16 ? launch<float, __nv_bfloat16>(u, delta, Af, B, C, Df, bf, yacc, y, hc, batch,
-                                                  dim, groups, dstate, L, softplus, reverse, s)
-                   : launch<float, float>(u, delta, Af, B, C, Df, bf, yacc, y, hc, batch, dim,
-                                          groups, dstate, L, softplus, reverse, s);
+    err = out_bf16 ? launch<float, __nv_bfloat16>(u, delta, Af, B, C, Df, bf, yacc, y, hc, h0f,
+                                                  hl, batch, dim, groups, dstate, L, softplus,
+                                                  reverse, s)
+                   : launch<float, float>(u, delta, Af, B, C, Df, bf, yacc, y, hc, h0f, hl,
+                                          batch, dim, groups, dstate, L, softplus, reverse, s);
   }
   return static_cast<int>(err);
+}
+
+// The plain scan: the launch above with no h0 and no hlast.
+int focalnet_selective_scan_fwd(const void* u, const void* delta, const void* A,
+                                const void* B, const void* C, const void* Dskip,
+                                const void* bias, const void* yacc, void* y, void* hchk,
+                                int batch, int dim, int groups, int dstate, int L,
+                                int softplus, int reverse, int in_bf16, int out_bf16,
+                                void* stream) {
+  return focalnet_selective_scan_fwd_state(u, delta, A, B, C, Dskip, bias, yacc, y, hchk,
+                                           nullptr, nullptr, batch, dim, groups, dstate, L,
+                                           softplus, reverse, in_bf16, out_bf16, stream);
 }
 
 }  // extern "C"

@@ -34,10 +34,11 @@ def _pair_scan(a, b):
     return a, b
 
 
-def scan_states(a, b, chunk=64):
-    """Every state of the recurrence ``h_i = a_i h_{i-1} + b_i`` (h_{-1} = 0)
-    along the last axis of ``a``, ``b`` (..., L): a pair scan within chunks of
-    ``chunk`` items, the carried state across them."""
+def scan_states(a, b, chunk=64, h0=None):
+    """Every state of the recurrence ``h_i = a_i h_{i-1} + b_i`` (h_{-1} = 0,
+    or ``h0`` of shape (...)) along the last axis of ``a``, ``b`` (..., L): a
+    pair scan within chunks of ``chunk`` items, the carried state across
+    them."""
     L = a.shape[-1]
     pad = (-L) % chunk
     a = F.pad(a, (0, pad), value=1.0)  # the monoid's identity
@@ -45,7 +46,7 @@ def scan_states(a, b, chunk=64):
     lead, n_chunks = a.shape[:-1], (L + pad) // chunk
     a_s, b_s = _pair_scan(a.reshape(*lead, n_chunks, chunk),
                           b.reshape(*lead, n_chunks, chunk))
-    h = torch.zeros(lead, dtype=b.dtype, device=b.device)
+    h = torch.zeros(lead, dtype=b.dtype, device=b.device) if h0 is None else h0
     prefixes = []
     for c in range(n_chunks):
         prefixes.append(h)
@@ -56,16 +57,17 @@ def scan_states(a, b, chunk=64):
 
 def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
                            delta_softplus=False, out_dtype=torch.float32,
-                           chunk=64):
+                           chunk=64, h0=None, return_last_state=False):
     """Chunked selective scan: pair scan within chunks, carried state across.
 
-    Shapes as in :mod:`focalnet_tpu_torch.ops.scan_ref`."""
+    Shapes as in :mod:`focalnet_tpu_torch.ops.scan_ref`, ``h0`` and
+    ``return_last_state`` (the segment API) too."""
     u, delta, A, B, C, D = _prepare(u, delta, A, B, C, D, delta_bias, delta_softplus)
     dim = u.shape[1]
     dA = torch.exp(delta[:, :, None, :] * A[None, :, :, None])  # (batch, dim, N, L)
     dBu = delta[:, :, None, :] * _expand_groups(B, dim) * u[:, :, None, :]
-    hs = scan_states(dA, dBu, chunk)
+    hs = scan_states(dA, dBu, chunk, None if h0 is None else h0.float())
     y = (hs * _expand_groups(C, dim)).sum(2)
     if D is not None:
         y = y + u * D[None, :, None]
-    return y.to(out_dtype)
+    return (y.to(out_dtype), hs[..., -1]) if return_last_state else y.to(out_dtype)

@@ -49,16 +49,20 @@ def _expand_groups(BC, dim):
 
 
 def selective_scan_ref(u, delta, A, B, C, D=None, delta_bias=None,
-                       delta_softplus=False, out_dtype=torch.float32):
+                       delta_softplus=False, out_dtype=torch.float32, h0=None,
+                       return_last_state=False):
     """Sequential oracle: one Python step per position.  Tests and small
-    shapes only."""
+    shapes only.  ``h0`` (batch, dim, N) seeds the recurrence instead of
+    zeros; ``return_last_state=True`` also returns the state after the last
+    position, (batch, dim, N) fp32 (the segment API)."""
     u, delta, A, B, C, D = _prepare(u, delta, A, B, C, D, delta_bias, delta_softplus)
     batch, dim, L = u.shape
     Bx = _expand_groups(B, dim)  # (batch, dim, N, L)
     Cx = _expand_groups(C, dim)
     dA = torch.exp(delta[:, :, None, :] * A[None, :, :, None])  # (batch, dim, N, L)
     dBu = delta[:, :, None, :] * Bx * u[:, :, None, :]
-    h = torch.zeros(batch, dim, A.shape[1], dtype=torch.float32, device=u.device)
+    h = (torch.zeros(batch, dim, A.shape[1], dtype=torch.float32, device=u.device)
+         if h0 is None else h0.float())
     ys = []
     for i in range(L):
         h = dA[..., i] * h + dBu[..., i]
@@ -66,4 +70,4 @@ def selective_scan_ref(u, delta, A, B, C, D=None, delta_bias=None,
     y = torch.stack(ys, dim=-1)
     if D is not None:
         y = y + u * D[None, :, None]
-    return y.to(out_dtype)
+    return (y.to(out_dtype), h) if return_last_state else y.to(out_dtype)

@@ -1,4 +1,5 @@
-"""Training loop (counterpart of ``focalnet_tpu/train/trainer.py``), one card.
+"""Training loop (counterpart of ``focalnet_tpu/train/trainer.py``), on one
+card, or on every rank of a sequence-parallel mesh.
 
 The reference recipe: multiscale L1 + 0.1 FFT loss, ``clip_grad_norm_(0.001)``
 before every step of Adam (lr 1e-4, betas 0.9/0.999, eps 1e-8, no weight
@@ -13,6 +14,15 @@ generator on the card, seeded from ``seed`` and the step index at every
 step, so a resumed run draws the masks the uninterrupted one would have (the
 JAX loop folds the step index into its key).  Loss values stay on the device until a
 print boundary, so the host does not wait for the card every step.
+
+Under a ``(1, M)`` mesh every rank runs this loop on the same batches with
+the same masks and initial weights, its model's SS2D scans sharded over L
+(``models.ss2d``).  After the scans' collectives every rank holds the same
+gradients; :func:`sync_grads` averages them over the ranks all the same,
+so that the ranks' Adam steps stay equal to the bit where two ranks' own
+layers round differently.  Validation runs the mesh-free model
+(``mesh_free``, the JAX trainer's ``eval_model``) on every rank.  Only rank
+0 writes the logs and the checkpoints.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 from focalnet_tpu_torch.configs import TrainConfig
 from focalnet_tpu_torch.data.reside import TrainLoader
 from focalnet_tpu_torch.evaluation.evaluator import validate
+from focalnet_tpu_torch.models.mimounet import mesh_free
 from focalnet_tpu_torch.models.ss2d import set_dropout_generator
 from focalnet_tpu_torch.train.checkpoint import CheckpointManager, restore
 from focalnet_tpu_torch.train.losses import multiscale_loss
@@ -50,13 +61,25 @@ def optimizer_step(model, optimizer, grad_clip: float = 0.001) -> None:
     optimizer.step()
 
 
+def sync_grads(model, mesh) -> None:
+    """Average every gradient of ``model`` over the ranks of ``mesh`` (one
+    flat all-reduce)."""
+    from focalnet_tpu_torch.parallel.mesh import all_reduce
+
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh) / mesh.size
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
 def make_train_step(model, optimizer, fft_weight: float = 0.1,
-                    grad_clip: float = 0.001, grad_accum: int = 1):
+                    grad_clip: float = 0.001, grad_accum: int = 1, mesh=None):
     """One step: loss, gradients, clip, Adam.  ``grad_accum > 1`` splits the
     batch into that many equal micro-batches and averages their gradients
     before the one update (the loss is a per-sample mean, so this is the
-    full-batch gradient up to rounding).  Returns the loss, content and fft
-    means as 0-d tensors on the device."""
+    full-batch gradient up to rounding).  Under a ``mesh`` the gradients are
+    averaged over its ranks (:func:`sync_grads`) before the update.  Returns
+    the loss, content and fft means as 0-d tensors on the device."""
 
     def train_step(hazy, gt):
         if hazy.shape[0] % grad_accum:
@@ -68,6 +91,8 @@ def make_train_step(model, optimizer, fft_weight: float = 0.1,
             total, content, fft = multiscale_loss(model(h), g, fft_weight)
             (total / grad_accum).backward()
             sums += torch.stack([total, content, fft]).detach()
+        if mesh is not None:
+            sync_grads(model, mesh)
         optimizer_step(model, optimizer, grad_clip)
         loss, content, fft = sums / grad_accum
         return {"loss": loss, "content": content, "fft": fft}
@@ -81,12 +106,17 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def train(model, cfg: TrainConfig, resume: Optional[str] = None,
-          log_file: Optional[str] = None):
+          log_file: Optional[str] = None, mesh=None):
     """Train ``model`` (a MIMOUNet on its device) by ``cfg``; ``resume`` is a
-    rolling ``model.pkl`` to continue from.  Returns (model, optimizer)."""
+    rolling ``model.pkl`` to continue from.  ``mesh``: this rank's
+    :class:`..parallel.Mesh` when ``model``'s scans are sequence-parallel
+    (every rank calls this).  Returns (model, optimizer)."""
     device = next(model.parameters()).device
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None and lead and mesh.size > 1:
+        print("Mesh: %s over %d devices" % (dict(mesh.shape), mesh.size))
     optimizer = make_optimizer(model, cfg.learning_rate)
-    ckpt = CheckpointManager(cfg.model_save_dir)
+    ckpt = CheckpointManager(cfg.model_save_dir) if lead else None
     start_epoch = 1
     if resume:
         epoch = restore(resume, model, optimizer)
@@ -100,11 +130,11 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
     set_dropout_generator(model, generator)
     model.train()
     train_step = make_train_step(model, optimizer, cfg.fft_loss_weight,
-                                 cfg.grad_clip, cfg.grad_accum)
+                                 cfg.grad_clip, cfg.grad_accum, mesh)
 
-    logf = open(log_file, "a") if log_file else None
+    logf = open(log_file, "a") if log_file and lead else None
     metricsf = (open(os.path.splitext(log_file)[0] + ".metrics.jsonl", "a")
-                if log_file else None)
+                if log_file and lead else None)
 
     def log(msg):
         print(msg, flush=True)
@@ -160,9 +190,10 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
                     iter_fft.reset()
 
             drain()
-            ckpt.save_rolling(model, optimizer, epoch_idx)
-            if epoch_idx % cfg.save_freq == 0:
-                ckpt.save_snapshot(model, epoch_idx)
+            if ckpt:
+                ckpt.save_rolling(model, optimizer, epoch_idx)
+                if epoch_idx % cfg.save_freq == 0:
+                    ckpt.save_snapshot(model, epoch_idx)
             log("EPOCH: %02d\nElapsed time: %4.2f Epoch Pixel Loss: %7.4f "
                 "Epoch FFT Loss: %7.4f" % (
                     epoch_idx, epoch_timer.toc(),
@@ -171,14 +202,17 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
             epoch_fft.reset()
 
             if epoch_idx % cfg.valid_freq == 0 or epoch_idx == 1:
-                val = validate(model, cfg.data_dir, batch_size=cfg.valid_batch)
+                with mesh_free(model):
+                    val = validate(model, cfg.data_dir, batch_size=cfg.valid_batch)
                 log("%03d epoch \n Average PSNR %.2f dB" % (epoch_idx, val))
                 log_metric(epoch=epoch_idx, psnr=val)
                 if val >= best_psnr:
                     best_psnr = val
-                    ckpt.save_best(model, epoch_idx)
+                    if ckpt:
+                        ckpt.save_best(model, epoch_idx)
 
-        ckpt.save_final(model, cfg.num_epoch)
+        if ckpt:
+            ckpt.save_final(model, cfg.num_epoch)
     finally:
         if logf:
             logf.close()

@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'focalnet_tpu'))\n"
         "for m in ('main', 'train.trainer', 'train.checkpoint', 'data.reside',\n"
         "          'evaluation.evaluator', 'ops.scan_bwd_ref', 'ops.fma_passes',\n"
-        "          'benchmarks.vpu_probe', 'utils.flops', 'utils.profiling'):\n"
+        "          'benchmarks.vpu_probe', 'utils.flops', 'utils.profiling',\n"
+        "          'parallel', 'parallel.mesh', 'parallel.seq_scan'):\n"
         "    assert 'focalnet_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
     )
@@ -278,6 +279,76 @@ def test_backward_kernel_matches_plain_on_card(reverse, in_dtype):
         scale = max(w.float().abs().max().item(), 1.0)
         tol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,G,L,reverse,accum,in_dtype", [
+    (384, 2, 1000, False, False, torch.float32),  # the sequence-parallel width, ragged L
+    (384, 2, 1024, True, True, torch.float32),
+    (16, 2, 999, True, False, torch.bfloat16),    # L % 8 != 0: plain loads
+    (24, 2, 1000, False, True, torch.bfloat16),
+])
+def test_segment_kernels_match_plain_on_card(dim, G, L, reverse, accum, in_dtype):
+    """The segment API on the card: K1 with h0 -> h_last (and its chunk
+    states from h0) and K2 with dh_last -> dh0, one launch each, against the
+    plain versions; two chained half segments against the whole launch; a
+    zero h0 and dh_last give the plain launch's y, chunk states, du and
+    ddelta bit for bit (dA, dB, dC, dD and dbias are summed by atomics in no
+    fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x, dy = _scan_inputs("cuda", L=L, dim=dim, N=16, G=G)
+    for k in ("u", "delta", "B", "C"):
+        x[k] = x[k].to(in_dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    h0, dh_last = (torch.randn(2, dim, 16, device="cuda", generator=g) for _ in range(2))
+    kw = dict(delta_softplus=True, reverse=reverse,
+              y_accum=torch.randn_like(dy) if accum else None)
+    before = (selective_scan_cuda.launches, selective_scan_bwd_cuda.launches)
+    y, h_last, hchk = selective_scan_cuda(**x, **kw, h0=h0, return_state=True,
+                                          chunk_states=True)
+    grads = selective_scan_bwd_cuda(*x.values(), dy, hchk, True, reverse, dh_last=dh_last,
+                                    with_state=True)
+    torch.cuda.synchronize()
+    assert (selective_scan_cuda.launches, selective_scan_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    y_w, h_w = selective_scan(**x, **kw, backend="chunked", h0=h0, return_state=True)
+    tol = dict(rtol=6e-4, atol=2e-3) if in_dtype == torch.float32 else dict(rtol=3e-2, atol=5e-2)
+    torch.testing.assert_close(y, y_w, **tol)
+    torch.testing.assert_close(h_last, h_w, **tol)
+    torch.testing.assert_close(hchk, chunk_states_ref(x["u"], x["delta"], x["A"], x["B"],
+                                                      x["delta_bias"], True, reverse, h0=h0),
+                               **tol)
+    want = selective_scan_bwd_ref(*x.values(), dy, True, reverse, h0=h0, dh_last=dh_last,
+                                  with_state=True)
+    assert len(grads) == len(want) == 8
+    for got, w in zip(grads, want):
+        scale = max(w.float().abs().max().item(), 1.0)
+        gtol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
+        assert (got.float() - w.float()).abs().max().item() <= gtol * scale
+
+    m = L // 2  # two chained segments, the first in scan order seeded with h0
+    half = lambda t, i: (t[..., :m] if i == 0 else t[..., m:]).contiguous()
+    seg = lambda i, h: selective_scan_cuda(
+        **{k: half(v, i) if k in ("u", "delta", "B", "C") else v for k, v in x.items()},
+        delta_softplus=True, reverse=reverse,
+        y_accum=None if kw["y_accum"] is None else half(kw["y_accum"], i),
+        h0=h, return_state=True)
+    first, second = (1, 0) if reverse else (0, 1)
+    y1, h1 = seg(first, h0)
+    y2, h2 = seg(second, h1)
+    torch.testing.assert_close(torch.cat([y2, y1] if reverse else [y1, y2], dim=-1), y, **tol)
+    torch.testing.assert_close(h2, h_last, **tol)
+
+    zero = torch.zeros_like(h0)
+    y_null, hchk_null = selective_scan_cuda(**x, **kw, chunk_states=True)
+    y_zero, _, hchk_zero = selective_scan_cuda(**x, **kw, h0=zero, return_state=True,
+                                               chunk_states=True)
+    assert torch.equal(y_zero, y_null) and torch.equal(hchk_zero, hchk_null)
+    g_null = selective_scan_bwd_cuda(*x.values(), dy, hchk_null, True, reverse)
+    g_zero = selective_scan_bwd_cuda(*x.values(), dy, hchk_null, True, reverse,
+                                     dh_last=zero, with_state=True)
+    assert torch.equal(g_zero[0], g_null[0]) and torch.equal(g_zero[1], g_null[1])
 
 
 @pytest.mark.cuda

@@ -1,0 +1,78 @@
+"""What each rank of ``tests/test_torch_seq_parallel.py``'s 2-rank gloo world
+runs (a module of its own, importable by name in the spawned ranks, which
+import no JAX).  Every case returns numpy arrays and numbers."""
+
+import contextlib
+import io
+
+import numpy as np
+import torch
+
+from focalnet_tpu_torch.main import main
+from focalnet_tpu_torch.models import build_net
+from focalnet_tpu_torch.models.ss2d import SS2D, set_dropout_generator
+from focalnet_tpu_torch.parallel import selective_scan_seq_sharded
+from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+TINY = dict(vssg_dim=16, ssm_d_state=4)
+SCAN_NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+
+
+def scan_grads(scan, arrays, dy, reverse):
+    """y and the gradients of ``sum(y * dy)`` of ``scan(*operands, reverse)``."""
+    leaves = [torch.tensor(arrays[k], requires_grad=True) for k in SCAN_NAMES]
+    y = scan(*leaves, reverse)
+    (y * torch.tensor(dy)).sum().backward()
+    return y.detach().numpy(), [t.grad.numpy() for t in leaves]
+
+
+def ss2d_out_grads(ss2d, x):
+    """SS2D's output at x and the gradients of ``sum |y|`` by parameter."""
+    ss2d.zero_grad()
+    y = ss2d(torch.tensor(x))
+    y.abs().sum().backward()
+    return y.detach().numpy(), {k: p.grad.numpy() for k, p in ss2d.named_parameters()}
+
+
+def train_step(model, hazy, gt, mesh=None):
+    """One train step of ``model`` (loss, clip, Adam) with the step-seeded
+    mask generator: the loss, the (clipped) gradients and the parameters
+    after the step."""
+    model.train()
+    set_dropout_generator(model, torch.Generator().manual_seed(7))
+    step = make_train_step(model, make_optimizer(model), mesh=mesh)
+    out = step(torch.tensor(hazy), torch.tensor(gt))
+    return (float(out["loss"]), {k: p.grad.numpy().copy() for k, p in model.named_parameters()},
+            {k: p.detach().numpy().copy() for k, p in model.named_parameters()})
+
+
+def run_cases(mesh, scan_case, ss2d_case, train_case, test_argv):
+    """Every case on this rank: the sequence-sharded scan (both directions)
+    with the largest tensor its graph saves, the seq-sharded SS2D, one train
+    step of the seq-sharded model, and ``--mode test --mesh_shape 1,2``
+    through the CLI on the running world (what rank 0 printed)."""
+    out = {}
+    arrays, dy = scan_case
+    sizes = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: sizes.append(t.numel()) or t, lambda t: t):
+        for reverse in (False, True):
+            out[("scan", reverse)] = scan_grads(
+                lambda *a: selective_scan_seq_sharded(*a[:7], delta_softplus=True,
+                                                      mesh=mesh, reverse=a[7]),
+                arrays, dy, reverse)
+    out["scan_max_saved"] = max(sizes)
+
+    ss2d_kw, state, x = ss2d_case
+    ss2d = SS2D(**ss2d_kw, seq_mesh=mesh, seq_axis="seq")
+    ss2d.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    out["ss2d"] = ss2d_out_grads(ss2d, x)
+
+    seed, hazy, gt = train_case
+    model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
+                      seq_mesh=mesh, seq_axis="seq", data_axis="data", **TINY)
+    out["train"] = train_step(model, hazy, gt, mesh)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["test_cli"] = main(test_argv)
+    return out
