@@ -41,9 +41,22 @@ single-rank run; and ``--mesh_shape 1,2`` training (the first step's
 gradients against one rank's, then 3 steps through the CLI with the ranks'
 parameters compared), with every rank's launch counts and peak memory.
 The two ranks share the one card (gloo); a rank that dies or a collective
-that hangs fails the run.  ``python3 chip_smoke.py --sp_only`` runs the
-sequence-parallel phases alone on every card of the machine (one card per
-rank over NCCL where there are enough; ``--mesh_shape 1,4`` too with four).
+that hangs fails the run.  The rest of parallelism: K1 (with and without
+y_accum) and K2 at the channel-split scan's shards against their plain
+versions, timed (``kernel_tp``); ``--mode test`` at ``--mesh_shape 4`` and
+``2,1`` and ``--mode serve --mesh_shape 1,2`` run without a mesh, as in
+JAX (``mesh_free_cli``); with two ranks on the card, data parallelism (the
+first batch-4 step against one process, ``dp_grad``; 3 steps of ``--mode
+train --mesh_shape 2`` under the bf16 recipe) and ``--mode infer`` at ``2``
+and ``1,2`` against the one-process PNGs (``dp_infer_cli``); with four, dp
+x sp at ``2,2`` (``dpsp_grad``, and 3 CLI steps) and the channel-split scan
+over a (data, model) = (2, 2) mesh (``tp_grad``, and 3 steps), each rank's
+launches, peak memory and step time.  ``python3 chip_smoke.py --sp_only``
+runs the sequence-parallel phases alone on every card of the machine (one
+card per rank over NCCL where there are enough; ``--mesh_shape 1,4`` too
+with four), and with several cards data parallelism over NCCL at ``2`` and
+``4`` ranks, batch 4 and 16, against one card, and ``--mode train`` with the
+default mesh.
 Each phase prints one JSON line; any failed check
 exits non-zero before the last line, which is ``{"ok": true,
 "device": {...}}``.
@@ -86,6 +99,8 @@ PATH_LS = (16384, 4096, 1024)  # scan lengths of a 256x256 forward
 SOTS_HW = (460, 620)
 EVAL_LS = (76800, 19200, 4800)
 EVAL_BATCHES = (1, 2)          # --mode test and infer; infer at --valid_batch 2
+# --mode infer's directory: two 460x620, two 256x256, one 250x310
+INFER_SIZES = [SOTS_HW, SOTS_HW, (256, 256), (256, 256), (250, 310)]
 LAUNCHES_PER_FORWARD = 48      # 12 SS2D x 4 directions
 # the other presets: K1 launches per forward, and K1 and K2 per train step
 # (the dual branch of 1mlp scans twice; the baseline's ResBlocks not at all)
@@ -132,6 +147,24 @@ SP_LAUNCHES_PER_FORWARD = 24   # 12 SS2D x 2 stacked-pair calls, on each rank
 # a rank that dies fails the run at once; a collective that hangs fails its
 # rank after parallel.mesh.COLLECTIVE_TIMEOUT_S (300 s), and with it the run
 SP_TIMEOUT_S = 300
+# data parallelism (--mesh_shape 2: two ranks, each 2 rows of the batch of
+# 4), dp x sp (2,2) and the channel-split scan over a (data, model) = (2, 2)
+# mesh, each rank's DropPath masks those of the whole batch (a generator
+# seeded with DP_MASK_SEED).  The mesh's first step against one process:
+# the loss within DP_LOSS_RTOL (the ranks' layers sum half the batch, in
+# another order), the gradients under GRAD_TOLS
+DP_MESH, DP_RANKS = "2", 2
+DPSP_SHAPE = TP_SHAPE = (2, 2)
+DP_MASK_SEED = 77
+DP_LOSS_RTOL = 1e-4
+DP_NCCL_BATCHES = (TRAIN_BATCH, 16)  # --sp_only on several cards: 1 and 4 images a card
+# the channel-split scan: each SS2D's two stacked-pair calls, with their
+# 2 x 192 channels split over the model axis; a sub-group shard holds half
+# of each group's channels (2 x 96 in two groups), and the whole-group shard
+# of the (2, 2) mesh one group of 192
+TP_DIM, TP_SUB_GROUPS = 192, 2
+TP_LAUNCHES_PER_FORWARD = 24   # 12 SS2D x 2 stacked-pair calls, on each rank
+TP_STEPS = 3
 
 
 def emit(**fields):
@@ -199,15 +232,16 @@ def scan_inputs(L, dim=192, N=16, dtype=torch.float32, seed=0, batch=1, groups=1
 
 
 def bound(L, clock_mhz, sms, dim=192, N=16, in_bytes=4, out_bytes=4, accum=False, batch=1,
-          chunk_states=False):
+          chunk_states=False, groups=1):
     """Least time (ms) for one forward call: the larger of the bytes moved
-    once (u, delta, B, C in the input dtype, y and y_accum in the output
-    dtype, the chunk states, A, D, bias in fp32) at the memory rate, the
-    9*L*D*N + L*D fp32 operations per batch row at the fp32 rate, and the
-    exponentials' floor."""
+    once (u, delta, B, C of ``groups`` groups in the input dtype, y and
+    y_accum in the output dtype, the chunk states, A, D, bias in fp32) at the
+    memory rate, the 9*L*D*N + L*D fp32 operations per batch row at the fp32
+    rate, and the exponentials' floor."""
     n_chunks = -(-L // 256)
     nbytes = (batch * (dim * L * (2 * in_bytes + out_bytes * (2 if accum else 1))
-                       + 2 * N * L * in_bytes + (dim * n_chunks * N * 4 if chunk_states else 0))
+                       + 2 * groups * N * L * in_bytes
+                       + (dim * n_chunks * N * 4 if chunk_states else 0))
               + (dim * N + 2 * dim) * 4)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = batch * (9 * L * dim * N + L * dim) / PEAK_FP32_FLOPS * 1e3
@@ -221,15 +255,15 @@ def sfu_ms(L, clock_mhz, sms, dim=192, N=16):
     return dim * N * L / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6) * 1e3
 
 
-def bound_bwd(L, clock_mhz, sms, dim=192, N=16, in_bytes=4, batch=1):
+def bound_bwd(L, clock_mhz, sms, dim=192, N=16, in_bytes=4, batch=1, groups=1):
     """Least time (ms) for one backward call: the larger of the bytes moved
     once (u, delta, B, C, du, ddelta in the input dtype; dy, the chunk
-    states, dB, dC, A, D, bias, dA, dD, dbias in fp32) at the memory rate,
-    22*L*D*N + 10*L*D fp32 operations per batch row (the forward's 9 per
-    state and element again, 13 for the adjoint and its sums) at the fp32
-    rate, and the exponentials' floor."""
+    states, dB, dC, A, D, bias, dA, dD, dbias in fp32; B, C of ``groups``
+    groups) at the memory rate, 22*L*D*N + 10*L*D fp32 operations per batch
+    row (the forward's 9 per state and element again, 13 for the adjoint and
+    its sums) at the fp32 rate, and the exponentials' floor."""
     n_chunks = -(-L // 256)
-    nbytes = (batch * (dim * L * (4 * in_bytes + 4) + 2 * N * L * (in_bytes + 4)
+    nbytes = (batch * (dim * L * (4 * in_bytes + 4) + 2 * groups * N * L * (in_bytes + 4)
                        + dim * n_chunks * N * 4) + 2 * (dim * N + 2 * dim) * 4)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = batch * (22 * L * dim * N + 10 * L * dim) / PEAK_FP32_FLOPS * 1e3
@@ -738,8 +772,9 @@ def phase_train_cli(cli_main, counters, tmp):
 
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "weights")
     make_synthetic_dataset(data, n_train=4, n_test=1, hw=(256, 256), seed=0)
-    common = ["--mode", "train", "--data_dir", data, "--batch_size", str(TRAIN_BATCH),
-              "--crop_size", "256", "--print_freq", "1", "--save_freq", "1",
+    common = ["--mode", "train", "--mesh_shape", "1", "--data_dir", data,
+              "--batch_size", str(TRAIN_BATCH), "--crop_size", "256", "--print_freq", "1",
+              "--save_freq", "1",
               "--valid_freq", "1", "--num_worker", "4", "--model_save_dir", out,
               "--result_dir", os.path.join(tmp, "train_images")]
     runs = []
@@ -892,7 +927,7 @@ def phase_infer_cli(cli_main, counters, tmp, ckpt, rng):
     files, within 1 LSB.  Returns the batch-1 run's K1 launches."""
     from focalnet_tpu_torch.data.png import read_png, write_png
 
-    sizes = [SOTS_HW, SOTS_HW, (256, 256), (256, 256), (250, 310)]
+    sizes = INFER_SIZES
     src = os.path.join(tmp, "infer_in")
     os.makedirs(src)
     for i, (h, w) in enumerate(sizes):
@@ -1195,7 +1230,8 @@ def phase_bf16_train_cli(cli_main, counters, tmp):
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        cli_main(["--mode", "train", "--preset", "1mlp", "--compute_dtype", "bfloat16",
+        cli_main(["--mode", "train", "--mesh_shape", "1", "--preset", "1mlp",
+                  "--compute_dtype", "bfloat16",
                   "--ssm_out_dtype", "bfloat16", "--data_dir", data,
                   "--batch_size", str(TRAIN_BATCH), "--crop_size", "256", "--print_freq", "1",
                   "--valid_freq", "1", "--num_worker", "4", "--num_epoch", "1",
@@ -1577,9 +1613,10 @@ def phase_sp_train(build_net, cli_main, tmp, card):
       K2 launches per rank; each rank's peak memory; the forward's and the
       step's time by CUDA events and device profile on each rank;
     - ``--mode train`` through the CLI for one epoch of 3 steps (validation
-      on 2 images, mesh-free): the parameters equal on both ranks after the
-      steps (a digest), 24 segment K1 and K2 launches a step per rank (and
-      48 dense K1 a validated image), finite losses in rank 0's log.
+      on 2 images, mesh-free, the ranks splitting them): the parameters equal
+      on both ranks after the steps (a digest), 24 segment K1 and K2
+      launches a step per rank (and 48 dense K1 a validated image), finite
+      losses in rank 0's log.
 
     Returns rank 0's K1 and K2 launches of the CLI run."""
     from focalnet_tpu_torch.data.reside import make_synthetic_dataset
@@ -1631,7 +1668,8 @@ def phase_sp_train(build_net, cli_main, tmp, card):
     got = [[r["launches_fwd"], r["segment_launches_fwd"], r["launches_bwd"],
             r["segment_launches_bwd"]] for r in reports]
     n = SP_LAUNCHES_PER_FORWARD * steps
-    expected = [n + LAUNCHES_PER_FORWARD * val_images, n, n, n]
+    expected = [[n + LAUNCHES_PER_FORWARD * len(range(r, val_images, len(reports))), n, n, n]
+                for r in range(len(reports))]
     digests = [r["result"]["param_sha256"] for r in reports]
     with open(os.path.join(out, "train.metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -1642,7 +1680,7 @@ def phase_sp_train(build_net, cli_main, tmp, card):
          losses=losses, psnr=[r["psnr"] for r in rows if "psnr" in r],
          peak_mem_gb=[r["peak_mem_gb"] for r in reports],
          checkpoints=sorted(os.listdir(out)), card=card)
-    if any(g != expected for g in got):
+    if got != expected:
         fail(f"--mode train --mesh_shape {SP_MESH}: launches per rank (K1, segment K1, K2, "
              f"segment K2) {got}, expected {expected}")
     if len(set(digests)) != 1:
@@ -1658,7 +1696,8 @@ def run_sp_only(cli_main, build_net, save_checkpoint, card):
     """``python3 chip_smoke.py --sp_only``: the sequence-parallel phases alone,
     on every card the machine has (NCCL when each rank has a card of its
     own): ``--mode test`` at ``1,2``, and at ``1,4`` with four cards, against
-    one rank on a 2-GT synthetic 460x620 split, then ``phase_sp_train``."""
+    one rank on a 2-GT synthetic 460x620 split, then ``phase_sp_train``; and
+    with several cards data parallelism over NCCL (``phase_dp_nccl``)."""
     from focalnet_tpu_torch.data.reside import make_synthetic_dataset
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1677,6 +1716,581 @@ def run_sp_only(cli_main, build_net, save_checkpoint, card):
         for mesh_shape in (SP_MESH, "1,4")[:1 + (torch.cuda.device_count() >= 4)]:
             phase_sp_test_cli(cli_main, tmp, ckpt, per_image, card, mesh_shape)
         phase_sp_train(build_net, cli_main, tmp, card)
+        phase_dp_nccl(build_net, cli_main, tmp, card, torch.cuda.device_count())
+
+
+# the rest of parallelism: data parallelism (--mesh_shape N and the auto
+# default), dp x sp (--mesh_shape D,M), sharded --mode infer, the
+# channel-split scan over a (data, model) mesh (build_net(tp_axis="model")),
+# and the mesh commands that run without a mesh
+
+
+def phase_kernel_tp(scan, fwd, bwd, bwd_ref, clock_mhz, sms):
+    """K1 and K2 at the channel-split scan's shards, against their plain
+    versions:
+
+    - the sub-group shard of a stacked pair (B = 4, 2 x 96 channels, two B/C
+      groups: each group's 192 channels halved), at L = 16384, 4096, 1024,
+      fp32 and bf16 operands: K1 with and without y_accum in both directions
+      against the plain scan under TOLS; K2 from K1's chunk states in both
+      directions against the plain adjoint under GRAD_TOLS;
+    - the whole-group shard that a (2, 2) data x model mesh gives each rank
+      (its 2 rows, one group of 192 channels, y_accum: JAX's rule picks
+      whole groups where the 2 groups divide over the 2 ranks), at the same
+      lengths, fp32, K1 both directions with y_accum and K2;
+    - in fp32, forward direction: K1 with y_accum timed beside the plain
+      launch (no y_accum) in turns (plain, y_accum, y_accum, plain), the
+      plain version's time and the bound; K2 with its plain version's time
+      and bound.
+
+    Returns the worst fp32 errors of K1 and K2 and the timings by (shard,
+    kernel, L)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst, worst_bwd, timing = 0.0, 0.0, {}
+    shards = (("sub_group", TRAIN_BATCH, TP_SUB_GROUPS, (f32, bf16)),
+              ("whole_group", TRAIN_BATCH // 2, 1, (f32,)))
+    for shard, batch, groups, dtypes in shards:
+        for L in PATH_LS:
+            for dt in dtypes:
+                x, dy = scan_inputs(L, dim=TP_DIM, dtype=dt, seed=5, batch=batch, groups=groups)
+                yacc = torch.randn_like(dy)
+                rtol, atol = TOLS[dt]
+                errs, gerrs = {}, {}
+                for rev in (False, True):
+                    for acc in ((False, True) if shard == "sub_group" else (True,)):
+                        with torch.inference_mode():
+                            kw = dict(delta_softplus=True, reverse=rev,
+                                      y_accum=yacc if acc else None)
+                            y = fwd(**x, **kw)
+                            want = scan(**x, **kw, backend="chunked")
+                        torch.cuda.synchronize()
+                        errs[f"reverse={rev},y_accum={acc}"], ok = max_err(y, want, rtol, atol)
+                        if not ok:
+                            fail(f"K1 at the tp {shard} shard B={batch} L={L} reverse={rev} "
+                                 f"y_accum={acc} {dt}: max abs err {errs}")
+                    _, hchk = fwd(**x, delta_softplus=True, reverse=rev, chunk_states=True)
+                    args = (*x.values(), dy, hchk, True, rev)
+                    got, want = bwd(*args), bwd_ref(*args[:8], True, rev)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(GRAD_NAMES[:7], got, want):
+                        gerrs[f"reverse={rev},{name}"], ok = grad_err(g, w, *GRAD_TOLS[dt])
+                        if not ok:
+                            fail(f"K2 at the tp {shard} shard B={batch} L={L} reverse={rev} "
+                                 f"{dt}: {name} max abs err {gerrs}")
+                    del got, want, hchk
+                emit(phase="kernel_tp", shard=shard, batch=batch, dim=TP_DIM, groups=groups, L=L,
+                     dtype=str(dt), max_abs_err=errs, max_abs_err_bwd=gerrs, rtol=rtol, atol=atol,
+                     grad_rtol=GRAD_TOLS[dt][0], grad_atol=GRAD_TOLS[dt][1])
+                if dt == f32:
+                    worst = max(worst, *errs.values())
+                    worst_bwd = max(worst_bwd, *gerrs.values())
+                    timing.update(_time_tp(scan, fwd, bwd, bwd_ref, x, dy, yacc, shard, batch,
+                                           groups, L, clock_mhz, sms))
+                del x, dy, yacc
+                torch.cuda.empty_cache()
+    return worst, worst_bwd, timing
+
+
+def _time_tp(scan, fwd, bwd, bwd_ref, x, dy, yacc, shard, batch, groups, L, clock_mhz, sms):
+    """K1 with y_accum beside the plain launch, in turns, and K2, forward
+    direction, fp32, with the plain versions' times and the bounds."""
+    with torch.inference_mode():
+        k1 = lambda **k: kernel_ms(lambda: fwd(**x, delta_softplus=True, **k),
+                                   "selective_scan_fwd")
+        plain_launch = [k1()]
+        ms = [k1(y_accum=yacc), k1(y_accum=yacc)]
+        plain_launch.append(k1())
+        plain = time_ms(lambda: scan(**x, delta_softplus=True, backend="chunked", y_accum=yacc),
+                        reps=3, warmup=1)
+        b, by = bound(L, clock_mhz, sms, dim=TP_DIM, accum=True, batch=batch, groups=groups)
+        _, hchk = fwd(**x, delta_softplus=True, chunk_states=True)
+        args = (*x.values(), dy, hchk, True, False)
+        ms_bwd = kernel_ms(lambda: bwd(*args), "selective_scan_bwd")
+        plain_bwd = time_ms(lambda: bwd_ref(*args[:8], True, False), reps=3, warmup=1)
+        b_bwd, by_bwd = bound_bwd(L, clock_mhz, sms, dim=TP_DIM, batch=batch, groups=groups)
+    emit(phase="kernel_tp_time", shard=shard, batch=batch, dim=TP_DIM, groups=groups, L=L,
+         ms=ms, plain_launch_ms=plain_launch, plain_ms=plain, bound_ms=b, bound_by=by,
+         ms_bwd=ms_bwd, plain_ms_bwd=plain_bwd, bound_ms_bwd=b_bwd, bound_by_bwd=by_bwd)
+    return {(shard, "fwd", L): (statistics.mean(ms), statistics.mean(plain_launch), plain, b, by),
+            (shard, "bwd", L): (ms_bwd, None, plain_bwd, b_bwd, by_bwd)}
+
+
+def _first_step(model, mesh, x, gt):
+    """One forward and backward of :func:`smooth_loss` on this rank's rows of
+    ``x``, ``gt`` (host arrays) with the whole batch's DropPath masks
+    (generator seeded with DP_MASK_SEED), the gradients and the loss then
+    averaged over the mesh as the train step averages them; the loss, the
+    K1 and K2 launches (all, and those of the segment API), the gradients
+    on the host and the peak memory."""
+    from focalnet_tpu_torch.models import set_dropout_generator
+    from focalnet_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bwd_cuda,
+        selective_scan_cuda,
+    )
+    from focalnet_tpu_torch.parallel import local_rows
+    from focalnet_tpu_torch.train.trainer import sync_grads
+
+    counters = (selective_scan_cuda, selective_scan_bwd_cuda)
+    rows = local_rows(len(x), mesh)
+    xs, gts = (torch.from_numpy(a[rows]).to(mesh.device) for a in (x, gt))
+    set_dropout_generator(model, torch.Generator(device=mesh.device).manual_seed(DP_MASK_SEED),
+                          (mesh.axis_index("data"), mesh.shape["data"]))
+    for c in counters:
+        c.launches = c.segment_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    loss = smooth_loss(model(xs), gts)
+    loss.backward()
+    loss = sync_grads(model, mesh, loss.detach().reshape(1))
+    torch.cuda.synchronize()
+    return dict(loss=float(loss), launches=[[c.launches, c.segment_launches] for c in counters],
+                grads={k: p.grad.cpu().numpy() for k, p in model.named_parameters()},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), (xs, gts)
+
+
+def _step_ms(model, mesh, xs, gts):
+    """ms per train step (loss, backward, the gradients' all-reduce, clip,
+    Adam) of ``model`` on this rank's rows, by CUDA events."""
+    from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    step = make_train_step(model, make_optimizer(model), mesh=mesh)
+    return time_ms(lambda: step(xs, gts), reps=3, warmup=1)
+
+
+def _cli_reports(cli_main, argvs):
+    """Each CLI command of ``argvs`` on the running world (this rank's
+    report; None on a rank outside the command's mesh), with its seconds."""
+    out = {}
+    for name, argv in argvs:
+        t0 = time.perf_counter()
+        report = cli_main(argv)
+        out[name] = (report, time.perf_counter() - t0)
+    return out
+
+
+def _dp_rank(mesh, x, gt, argvs):
+    """A rank of ``phase_dp``'s 2-rank world: the first step of the
+    full-width ``1mlp_g2`` (seed 1234, DropPath on) data parallel at batch 4,
+    its train step's time, then the CLI commands on the running world."""
+    from focalnet_tpu_torch.main import main as cli_main
+    from focalnet_tpu_torch.models import build_net
+
+    model = build_net("1mlp_g2", device=mesh.device,
+                      generator=torch.Generator().manual_seed(1234)).train()
+    out, (xs, gts) = _first_step(model, mesh, x, gt)
+    out.update(rank=mesh.rank, backend=mesh.backend, step_ms=_step_ms(model, mesh, xs, gts))
+    del model, xs, gts
+    torch.cuda.empty_cache()
+    out["cli"] = _cli_reports(cli_main, argvs)
+    return out
+
+
+def _dpsp_tp_rank(mesh, x, gt, argvs):
+    """A rank of ``phase_dpsp_tp``'s 4-rank world (``mesh``: (data, seq) =
+    (2, 2)): the first step of the full-width ``1mlp_g2`` dp x sp, its train
+    step's time and the CLI commands on the running world; then on a (data,
+    model) = (2, 2) mesh of the same ranks the first step with channel-split
+    scans and 3 steps (their wall time), after which the parameters'
+    digest."""
+    import hashlib
+
+    from focalnet_tpu_torch.main import main as cli_main
+    from focalnet_tpu_torch.models import build_net
+    from focalnet_tpu_torch.parallel import make_mesh
+    from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    model = build_net("1mlp_g2", device=mesh.device, seq_mesh=mesh, seq_axis="seq",
+                      data_axis="data", generator=torch.Generator().manual_seed(1234)).train()
+    out["dpsp"], (xs, gts) = _first_step(model, mesh, x, gt)
+    out["dpsp"]["step_ms"] = _step_ms(model, mesh, xs, gts)
+    del model
+    torch.cuda.empty_cache()
+    out["cli"] = _cli_reports(cli_main, argvs)
+
+    tp = make_mesh(TP_SHAPE, mesh.device, axes=("data", "model"))
+    model = build_net("1mlp_g2", device=mesh.device, seq_mesh=tp, tp_axis="model",
+                      data_axis="data", generator=torch.Generator().manual_seed(1234)).train()
+    out["tp"], (xs, gts) = _first_step(model, tp, x, gt)
+    step = make_train_step(model, make_optimizer(model), mesh=tp)
+    t0 = time.perf_counter()
+    for _ in range(TP_STEPS):
+        step(xs, gts)
+    torch.cuda.synchronize()
+    out["tp"]["steps_seconds"] = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+    out["tp"]["param_sha256"] = digest.hexdigest()
+    return out
+
+
+def _check_first_step(name, r, want_loss, want, expected_launches, card, ranks, **fields):
+    """Hold one rank's first step against the one-process step: the loss
+    within DP_LOSS_RTOL, every gradient under GRAD_TOLS, the launches."""
+    rtol, atol = GRAD_TOLS[torch.float32]
+    worst, worst_key, max_abs = 0.0, None, 0.0
+    for k, w in want.items():
+        err, ok = grad_err(torch.from_numpy(r["grads"][k]).cuda(), w, rtol, atol)
+        if not ok:
+            fail(f"{name} rank {fields.get('rank')}: gradient of {k} vs one process: "
+                 f"max abs err {err}")
+        max_abs = max(max_abs, err)
+        lim = atol * max(1.0, float(w.abs().max()))
+        if err / lim > worst:
+            worst, worst_key = err / lim, k
+    d_loss = abs(r["loss"] - want_loss) / abs(want_loss)
+    emit(phase=name, **fields, loss=r["loss"], one_process_loss=want_loss,
+         loss_rel_diff=d_loss, params=len(r["grads"]), max_abs_err=max_abs,
+         max_err_over_atol=worst, worst_param=worst_key, grad_rtol=rtol, grad_atol=atol,
+         launches=r["launches"], expected_launches=expected_launches,
+         peak_mem_gb=r["peak_mem_gb"], step_ms=r.get("step_ms"), card=card,
+         note=_sp_note(ranks))
+    if not d_loss <= DP_LOSS_RTOL:
+        fail(f"{name}: loss {r['loss']} vs one process {want_loss}")
+    if r["launches"] != expected_launches or len(r["grads"]) != len(want):
+        fail(f"{name}: launches (K1, segment K1), (K2, segment K2) {r['launches']}, expected "
+             f"{expected_launches}; {len(r['grads'])} gradients")
+
+
+def _one_process_step(build_net, batch=TRAIN_BATCH):
+    """The batch (host arrays) and the one-process reference of the mesh
+    phases' first step: the loss and gradients of :func:`smooth_loss` of the
+    full-width ``1mlp_g2`` (seed 1234, DropPath masks from DP_MASK_SEED) on
+    the whole batch."""
+    from focalnet_tpu_torch.models import set_dropout_generator
+
+    gen = torch.Generator().manual_seed(4321)
+    x = torch.rand(batch, 256, 256, 3, generator=gen)
+    gt = torch.rand(batch, 256, 256, 3, generator=gen)
+    model = build_net("1mlp_g2", device="cuda",
+                      generator=torch.Generator().manual_seed(1234)).train()
+    set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(DP_MASK_SEED))
+    loss = smooth_loss(model(x.cuda()), gt.cuda())
+    loss.backward()
+    return (x.numpy(), gt.numpy(), float(loss.detach()),
+            {k: p.grad for k, p in model.named_parameters()})
+
+
+def _train_argv(tmp, name, mesh_shape=None, extra=()):
+    """``--mode train`` of 3 steps at batch 4 and one validation on 2 images
+    (``dp_data``), with ``--mesh_shape`` (None: the default)."""
+    from focalnet_tpu_torch.data.reside import make_synthetic_dataset
+
+    data = os.path.join(tmp, "dp_data")
+    if not os.path.isdir(data):
+        make_synthetic_dataset(data, n_train=6, n_test=1, hw=(256, 256), seed=0)
+    return ["--mode", "train", "--data_dir", data, "--batch_size", str(TRAIN_BATCH),
+            "--crop_size", "256", "--print_freq", "1", "--valid_freq", "1", "--num_worker", "4",
+            "--num_epoch", "1", "--model_save_dir", os.path.join(tmp, name),
+            "--result_dir", os.path.join(tmp, f"{name}_images"), *extra,
+            *(["--mesh_shape", mesh_shape] if mesh_shape is not None else [])]
+
+
+def _check_train_cli(name, mesh_shape, reports, tmp, card, steps=3, val_images=2,
+                     segment=False):
+    """A ``--mode train`` run of 3 steps on a mesh: the ranks' parameter
+    digests equal, the K1 and K2 launches of each rank (24 segment calls of
+    each a step under a seq axis, 48 dense a step otherwise; 48 dense K1 a
+    validated image, the images split over the ranks), finite losses in
+    rank 0's log and its ``Mesh:`` line."""
+    size = len(reports)
+    per_step = SP_LAUNCHES_PER_FORWARD if segment else LAUNCHES_PER_FORWARD
+    got, expected = [], []
+    for r, (report, _) in enumerate(reports):
+        got.append([report["launches_fwd"], report["segment_launches_fwd"],
+                    report["launches_bwd"], report["segment_launches_bwd"]])
+        val = LAUNCHES_PER_FORWARD * len(range(r, val_images, size))
+        n = per_step * steps
+        expected.append([n + val, n if segment else 0, n, n if segment else 0])
+    digests = [rep["result"]["param_sha256"] for rep, _ in reports]
+    with open(os.path.join(tmp, name, "train.metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [(r["pixel_loss"], r["fft_loss"]) for r in rows if "step" in r]
+    first = reports[0][0]["stdout"].splitlines()[:1]
+    emit(phase=f"{name}_cli", mesh_shape=mesh_shape, ranks=size,
+         backend=reports[0][0]["backend"], steps=steps, seconds=reports[0][1], launches=got,
+         expected_launches=expected, param_sha256=digests, losses=losses,
+         psnr=[r["psnr"] for r in rows if "psnr" in r], first_line=first,
+         peak_mem_gb=[rep["peak_mem_gb"] for rep, _ in reports], card=card)
+    if got != expected:
+        fail(f"--mode train --mesh_shape {mesh_shape}: launches per rank (K1, segment K1, K2, "
+             f"segment K2) {got}, expected {expected}")
+    if len(set(digests)) != 1:
+        fail(f"--mode train --mesh_shape {mesh_shape}: the ranks' parameters differ: {digests}")
+    if len(losses) != steps or not all(math.isfinite(v) for r in losses for v in r):
+        fail(f"--mode train --mesh_shape {mesh_shape}: losses {losses}")
+    shape = dict(zip(("data", "seq"), (int(n) for n in mesh_shape.split(","))))
+    if first != [f"Mesh: {shape} over {size} devices"]:
+        fail(f"--mode train --mesh_shape {mesh_shape} printed {first} first")
+
+
+def _infer_forwards(sizes, batch, rank, n_data):
+    """Forwards of ``--mode infer`` on rank ``rank`` of ``n_data`` data ranks:
+    one per bucket of a padded shape (``batch`` images a bucket) in which the
+    rank has rows."""
+    from collections import Counter
+
+    count = 0
+    for n in Counter((-(-h // 32), -(-w // 32)) for h, w in sizes).values():
+        for i in range(0, n, batch):
+            if rank < min(batch, n - i):
+                count += 1
+    return count
+
+
+def phase_dp(build_net, cli_main, tmp, card, infer_src, infer_sizes, infer_want):
+    """Data parallelism with two gloo ranks sharing the card (one spawned
+    world):
+
+    - ``dp_grad``: the first batch-4 step (each rank its 2 rows, the whole
+      batch's DropPath masks) of the full-width ``1mlp_g2``: loss within
+      DP_LOSS_RTOL and every gradient under GRAD_TOLS of the one-process
+      step; 48 K1 and 48 K2 launches per rank; the step's time;
+    - ``dp_train_cli``: ``--mode train --mesh_shape 2`` under the bf16
+      recipe, 3 steps: equal parameters on both ranks, launches, ``Mesh:``;
+    - ``dp_infer_cli``: ``--mode infer`` at ``--mesh_shape 2`` and ``1,2`` on
+      ``phase_infer_cli``'s directory: JAX's note first, every PNG within 1
+      LSB of the one-process batch-1 run, the launches of each rank.
+
+    Returns rank 0's K1 and K2 launches of the first step."""
+    from focalnet_tpu_torch.data.png import read_png
+    from focalnet_tpu_torch.parallel import spawn
+
+    x, gt, want_loss, want = _one_process_step(build_net)
+    infer = {shape: ["--mode", "infer", "--input", infer_src, "--test_model",
+                     os.path.join(tmp, "model.pkl"), "--result_dir",
+                     os.path.join(tmp, f"dp_infer_{shape}"), "--model_save_dir",
+                     os.path.join(tmp, "dp_infer_cfg"), "--mesh_shape", shape]
+             for shape in ("2", "1,2")}
+    argvs = [("dp_train", _train_argv(tmp, "dp_train", DP_MESH, ["--compute_dtype", "bfloat16",
+                                                                  "--ssm_out_dtype", "bfloat16"]))]
+    argvs += [(f"infer_{s}", a) for s, a in infer.items()]
+    with _stdout_fd_to(os.path.join(tmp, "dp.out")):
+        ranks = spawn(_dp_rank, (DP_RANKS,), "cuda", args=(x, gt, argvs), timeout_s=SP_TIMEOUT_S)
+    expected = [[LAUNCHES_PER_FORWARD, 0]] * 2
+    for r in ranks:
+        _check_first_step("dp_grad", r, want_loss, want, expected, card, DP_RANKS,
+                          mesh_shape=DP_MESH, rank=r["rank"], backend=r["backend"])
+    _check_train_cli("dp_train", DP_MESH, [r["cli"]["dp_train"] for r in ranks], tmp, card)
+    names = sorted(os.listdir(infer_want))
+    for shape in infer:
+        reports = [r["cli"][f"infer_{shape}"] for r in ranks]
+        out_dir = os.path.join(tmp, f"dp_infer_{shape}")
+        got_names = sorted(os.listdir(out_dir))
+        lsb = (max(int(np.abs(read_png(os.path.join(out_dir, n)).astype(int)
+                              - read_png(os.path.join(infer_want, n)).astype(int)).max())
+                   for n in names) if got_names == names else None)
+        data = int(shape.split(",")[0])
+        segment = "," in shape
+        forwards = [_infer_forwards(infer_sizes, data, r * data // DP_RANKS, data)
+                    for r in range(DP_RANKS)]
+        per = SP_LAUNCHES_PER_FORWARD if segment else LAUNCHES_PER_FORWARD
+        expected = [[per * f, per * f if segment else 0, 0, 0] for f in forwards]
+        got = [[rep["launches_fwd"], rep["segment_launches_fwd"], rep["launches_bwd"],
+                rep["segment_launches_bwd"]] for rep, _ in reports]
+        note = (f"note: --valid_batch raised to {data} (one image per 'data'-axis device of "
+                f"--mesh_shape {shape})")
+        printed = reports[0][0]["stdout"].strip().splitlines()
+        emit(phase="dp_infer_cli", mesh_shape=shape, ranks=len(reports),
+             backend=reports[0][0]["backend"], images=len(names), files=got_names,
+             max_png_diff_lsb=lsb, printed=printed, launches=got, expected_launches=expected,
+             seconds=reports[0][1], peak_mem_gb=[rep["peak_mem_gb"] for rep, _ in reports],
+             card=card, note=_sp_note(DP_RANKS))
+        if got_names != names or lsb > 1:
+            fail(f"--mode infer --mesh_shape {shape} wrote {got_names}, {lsb} LSB from one "
+                 "process")
+        if got != expected:
+            fail(f"--mode infer --mesh_shape {shape}: launches per rank {got}, expected "
+                 f"{expected}")
+        if not printed or printed[0] != note:
+            fail(f"--mode infer --mesh_shape {shape} printed {printed[:1]}, want {note!r}")
+    del want
+    torch.cuda.empty_cache()
+    return ranks[0]["launches"][0][0], ranks[0]["launches"][1][0]
+
+
+def phase_dpsp_tp(build_net, cli_main, tmp, card):
+    """dp x sp and the channel-split scan with four gloo ranks sharing the
+    card (one spawned world, ``(data, seq) = (2, 2)``, and a ``(data,
+    model) = (2, 2)`` mesh of the same ranks):
+
+    - ``dpsp_grad``: the first batch-4 step of the full-width ``1mlp_g2``
+      against the one-process step (as ``dp_grad``); 24 segment K1 and 24
+      segment K2 launches per rank; ``dpsp_train_cli``: ``--mode train
+      --mesh_shape 2,2``, 3 steps, as ``dp_train_cli``;
+    - ``tp_grad``: the same first step with every SS2D's scans split over
+      the channels (``build_net(tp_axis="model")``); 24 K1 and 24 K2 launches
+      per rank; then 3 steps, after which the ranks' parameter digests are
+      equal.
+
+    Returns rank 0's tp launches (K1, K2) of the first step and the tp
+    step's ms."""
+    from focalnet_tpu_torch.parallel import spawn
+
+    x, gt, want_loss, want = _one_process_step(build_net)
+    argvs = [("dpsp_train", _train_argv(tmp, "dpsp_train", "2,2"))]
+    with _stdout_fd_to(os.path.join(tmp, "dpsp_tp.out")):
+        ranks = spawn(_dpsp_tp_rank, DPSP_SHAPE, "cuda", args=(x, gt, argvs),
+                      timeout_s=SP_TIMEOUT_S)
+    n = math.prod(DPSP_SHAPE)
+    for r in ranks:
+        _check_first_step("dpsp_grad", r["dpsp"], want_loss, want,
+                          [[SP_LAUNCHES_PER_FORWARD] * 2] * 2, card, n, mesh_shape="2,2",
+                          rank=r["rank"], backend=r["backend"])
+    _check_train_cli("dpsp_train", "2,2", [r["cli"]["dpsp_train"] for r in ranks], tmp, card,
+                     segment=True)
+    for r in ranks:
+        _check_first_step("tp_grad", r["tp"], want_loss, want,
+                          [[TP_LAUNCHES_PER_FORWARD, 0]] * 2, card, n,
+                          mesh_shape="(data, model) = (2, 2)", rank=r["rank"],
+                          backend=r["backend"], steps=TP_STEPS,
+                          steps_seconds=r["tp"]["steps_seconds"],
+                          param_sha256=r["tp"]["param_sha256"])
+    digests = {r["tp"]["param_sha256"] for r in ranks}
+    if len(digests) != 1:
+        fail(f"tp_grad: after {TP_STEPS} steps the ranks' parameters differ: {digests}")
+    del want
+    torch.cuda.empty_cache()
+    return ranks[0]["tp"]["launches"][0][0], ranks[0]["tp"]["launches"][1][0]
+
+
+def phase_mesh_free_cli(cli_main, tmp, ckpt, single_per_image, card, serve_src, serve_want):
+    """The mesh commands that the JAX CLI runs without a mesh, in this
+    process (``parallel.mesh.spawn`` replaced by a function that fails):
+    ``--mode test`` at ``--mesh_shape 4`` and ``2,1`` on ``phase_test_cli``'s
+    split print its per-image lines (PSNR within 0.01 dB, SSIM within 1e-4
+    of the kernel run as printed) and 48 K1 launches an image, JAX's note
+    first at ``2,1``; ``--mode serve --mesh_shape 1,2`` answers one request
+    within 1 LSB of the mesh-free server's answer."""
+    import focalnet_tpu_torch.parallel.mesh as mesh_mod
+    from focalnet_tpu_torch.data.png import read_png
+    from focalnet_tpu_torch.ops.selective_scan_cuda import selective_scan_cuda
+
+    def no_spawn(*args, **kwargs):
+        fail("a mesh command that JAX runs without a mesh spawned ranks")
+
+    note = ('note: --mode test is batch-1; ignoring the dp axis of --mesh_shape '
+            '(use "1,M" for sequence-parallel eval)')
+    spawn, mesh_mod.spawn = mesh_mod.spawn, no_spawn
+    try:
+        for shape in ("4", "2,1"):
+            selective_scan_cuda.launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli_main(["--mode", "test", "--data_dir", os.path.join(tmp, "sots"),
+                          "--test_model", ckpt, "--result_dir", os.path.join(tmp, "mf_test"),
+                          "--model_save_dir", os.path.join(tmp, "mf_cfg"),
+                          "--mesh_shape", shape])
+            torch.cuda.synchronize()
+            text = buf.getvalue()
+            per_image, summary = _eval_lines(text)
+            d_psnr = max(abs(a[0] - b[0]) for a, b in zip(per_image, single_per_image))
+            d_ssim = max(abs(a[1] - b[1]) for a, b in zip(per_image, single_per_image))
+            first = text.splitlines()[:1]
+            expected = LAUNCHES_PER_FORWARD * len(single_per_image)
+            emit(phase="mesh_free_cli", mode="test", mesh_shape=shape, first_line=first,
+                 per_image=per_image, max_psnr_diff_db=d_psnr, max_ssim_diff=d_ssim,
+                 launches_fwd=selective_scan_cuda.launches, expected_launches=expected,
+                 card=card)
+            if (first == [note]) != (shape == "2,1"):
+                fail(f"--mode test --mesh_shape {shape} printed {first} first")
+            if len(per_image) != len(single_per_image) or len(summary) != 3:
+                fail(f"--mode test --mesh_shape {shape} printed {per_image} and {summary}")
+            if not (d_psnr <= 0.01 + 1e-9 and d_ssim <= 1e-4 + 1e-12):
+                fail(f"--mode test --mesh_shape {shape}: PSNR {d_psnr} dB, SSIM {d_ssim} from "
+                     "the run without a mesh")
+            if selective_scan_cuda.launches != expected:
+                fail(f"--mode test --mesh_shape {shape}: {selective_scan_cuda.launches} K1 "
+                     f"launches, expected {expected}")
+        out_dir = os.path.join(tmp, "mf_serve")
+        h, w = read_png(serve_src).shape[:2]
+        lines, launches, _, expected = serve_run(cli_main, ckpt, [(serve_src, (h, w))], out_dir,
+                                                 ["--mesh_shape", "1,2"], selective_scan_cuda, 1)
+        name = os.path.basename(serve_src)
+        lsb = int(np.abs(read_png(os.path.join(out_dir, name)).astype(int)
+                         - read_png(os.path.join(serve_want, name)).astype(int)).max())
+        emit(phase="mesh_free_cli", mode="serve", mesh_shape="1,2", answers=lines,
+             max_png_diff_lsb=lsb, launches_fwd=launches, expected_launches=expected, card=card)
+        if lsb > 1 or launches != expected:
+            fail(f"--mode serve --mesh_shape 1,2: {lsb} LSB from the mesh-free server, "
+                 f"{launches} K1 launches (expected {expected})")
+    finally:
+        mesh_mod.spawn = spawn
+
+
+def _dp_nccl_rank(mesh, batches):
+    """A rank of ``phase_dp_nccl``: for each global batch of ``batches``
+    (host arrays), the first step of the full-width ``1mlp_g2`` on this
+    rank's rows and its train step's time."""
+    from focalnet_tpu_torch.models import build_net
+
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    for x, gt in batches:
+        model = build_net("1mlp_g2", device=mesh.device,
+                          generator=torch.Generator().manual_seed(1234)).train()
+        r, (xs, gts) = _first_step(model, mesh, x, gt)
+        r["step_ms"] = _step_ms(model, mesh, xs, gts)
+        out[len(x)] = r
+        del model, xs, gts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp_nccl(build_net, cli_main, tmp, card, cards):
+    """``--sp_only`` on a machine with several cards: data parallelism over
+    NCCL, one card a rank, at ``--mesh_shape 2`` and ``4`` (as many as there
+    are cards), at batch 4 and 16: the first step against one card's (loss,
+    gradients; 48 K1 and 48 K2 launches per rank) and each rank's train step
+    time beside one card's at the same batch; then ``--mode train`` with no
+    ``--mesh_shape`` (JAX's default: data parallel over every card dividing
+    the batch), which must print ``Mesh: {'data': N} over N devices``.
+    ``cards``: the machine's card count."""
+    from focalnet_tpu_torch.models import set_dropout_generator
+    from focalnet_tpu_torch.parallel import spawn
+    from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    refs, batches = {}, []
+    for batch in DP_NCCL_BATCHES:
+        x, gt, loss, want = _one_process_step(build_net, batch)
+        model = build_net("1mlp_g2", device="cuda",
+                          generator=torch.Generator().manual_seed(1234)).train()
+        set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(DP_MASK_SEED))
+        step = make_train_step(model, make_optimizer(model))
+        xs, gts = torch.from_numpy(x).cuda(), torch.from_numpy(gt).cuda()
+        one_ms = time_ms(lambda: step(xs, gts), reps=3, warmup=1)
+        refs[batch] = (loss, {k: v.cpu() for k, v in want.items()}, one_ms)
+        batches.append((x, gt))
+        del model, step, xs, gts, want
+        torch.cuda.empty_cache()
+    for n in (2, 4):
+        if n > cards:
+            continue
+        with _stdout_fd_to(os.path.join(tmp, f"dp_nccl_{n}.out")):
+            ranks = spawn(_dp_nccl_rank, (n,), "cuda", args=(batches,), timeout_s=SP_TIMEOUT_S)
+        for batch in DP_NCCL_BATCHES:
+            loss, want, one_ms = refs[batch]
+            for r in ranks:
+                _check_first_step("dp_nccl", r[batch], loss, {k: v.cuda() for k, v in want.items()},
+                                  [[LAUNCHES_PER_FORWARD, 0]] * 2, card, n, mesh_shape=str(n),
+                                  rank=r["rank"], backend=r["backend"], batch=batch,
+                                  one_card_step_ms=one_ms)
+    if cards < 2:
+        return
+    t0 = time.perf_counter()
+    with _stdout_fd_to(os.path.join(tmp, "dp_auto.out")):
+        reports = cli_main(_train_argv(tmp, "dp_auto"))
+    seconds = time.perf_counter() - t0
+    n = len(reports)
+    first = reports[0]["stdout"].splitlines()[:1]
+    emit(phase="dp_auto_cli", ranks=n, backend=reports[0]["backend"], first_line=first,
+         seconds=seconds, launches=[[r["launches_fwd"], r["launches_bwd"]] for r in reports],
+         param_sha256=[r["result"]["param_sha256"] for r in reports], card=card)
+    want_n = max(k for k in range(1, cards + 1) if TRAIN_BATCH % k == 0)
+    if first != [f"Mesh: {{'data': {want_n}}} over {want_n} devices"] or n != want_n:
+        fail(f"--mode train with the default mesh on {cards} cards printed {first} on {n} ranks")
+    if len({r["result"]["param_sha256"] for r in reports}) != 1:
+        fail("--mode train with the default mesh: the ranks' parameters differ")
 
 
 def serve_run(main, ckpt, requests, out_dir, extra, ss_cuda, expect_forwards):
@@ -1810,6 +2424,10 @@ def main():
         selective_scan, selective_scan_cuda, selective_scan_bwd_cuda, selective_scan_bwd_ref,
         chunk_states_ref, clock_mhz, sms)
 
+    worst_tp, worst_tp_bwd, timing_tp = phase_kernel_tp(
+        selective_scan, selective_scan_cuda, selective_scan_bwd_cuda, selective_scan_bwd_ref,
+        clock_mhz, sms)
+
     # 4. the FMA-rate probe's path, with launch counts
     peak_tflops = 2 * FMA_LANES_PER_SM * sms * clock_mhz * 1e6 / 1e12
     probe_launches, jax_pair, wide = phase_vpu_probe(
@@ -1877,6 +2495,17 @@ def main():
                                                            test_per_image, card)
         sp_launches = phase_sp_train(build_net, cli_main, tmp, card)
 
+        # 8c. the rest of parallelism: the mesh commands that run without a
+        # mesh, data parallelism with sharded --mode infer, dp x sp and the
+        # channel-split scan (two and four ranks sharing the card)
+        infer_src = os.path.join(tmp, "infer_in")
+        phase_mesh_free_cli(cli_main, tmp, ckpt, test_per_image, card,
+                            os.path.join(infer_src, "img4_250x310.png"),
+                            os.path.join(tmp, "infer_serve"))
+        dp_launches = phase_dp(build_net, cli_main, tmp, card, infer_src, INFER_SIZES,
+                               os.path.join(tmp, "infer_batch1"))
+        tp_launches = phase_dpsp_tp(build_net, cli_main, tmp, card)
+
         # 9. the other three presets: forwards, train steps, and through the CLI
         preset_launches = phase_presets(build_net, counters, card, smi, rng)
         phase_preset_cli(cli_main, counters, tmp)
@@ -1922,6 +2551,8 @@ def main():
                  bound_by=t[3])
             for (k, b, L, rev, dt), t in sorted(timing_new.items()) if k == which]
     entries[0]["launches_vpu_probe"] = probe_launches["selective_scan_cuda"]
+    for e, n in zip(entries, dp_launches):
+        e["launches_dp_step_per_rank"] = n
     for name, src, line, err, launches, which in (
         ("selective_scan_fwd_segment", SOURCE, 347, worst_seg, sp_launches[0], "fwd"),
         ("selective_scan_bwd_segment", SOURCE_BWD, 421, worst_seg_bwd, sp_launches[1], "bwd"),
@@ -1943,6 +2574,24 @@ def main():
         ))
     entries[-2]["launches_sp_test_cli"] = sp_test_launches
     entries[-2]["sp_test_cli_average_time_s"] = sp_test_time
+    for name, src, line, err, launches, which in (
+        ("selective_scan_fwd_tp", SOURCE, 347, worst_tp, tp_launches[0], "fwd"),
+        ("selective_scan_bwd_tp", SOURCE_BWD, 421, worst_tp_bwd, tp_launches[1], "bwd"),
+    ):
+        ms, _, plain_ms, b, by = timing_tp[("sub_group", which, PATH_LS[0])]
+        entries.append(dict(
+            name=name, route="cuda", source=f"focalnet_tpu_torch/ops/csrc/{src}",
+            replaces=f"focalnet_tpu/ops/pallas_scan.py:{line}", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            library_ms=None,
+            shape=f"B={TRAIN_BATCH} D=2x96 G={TP_SUB_GROUPS} N=16 L={PATH_LS[0]} fp32, forward "
+                  "direction" + (", with y_accum" if which == "fwd" else "")
+                  + " (a sub-group shard of the channel-split scan)",
+            launches_per_rank_note="rank 0's first step on the (data, model) = (2, 2) mesh",
+            shards=[dict(shard=k[0], L=k[2], ms=t[0], plain_launch_ms=t[1], plain_ms=t[2],
+                         bound_ms=t[3], bound_by=t[4])
+                    for k, t in sorted(timing_tp.items()) if k[1] == which],
+        ))
     P = 8 * PROBE_PATH_LOOPS[1]
     ms, plain_ms, b, by = timing_fma[P]
     entries.append(dict(

@@ -2,9 +2,9 @@
 of ``focalnet_tpu/configs.py``).
 
 The port keeps its own copy: it imports nothing of ``focalnet_tpu``.  Only the
-fields the port reads are here, with the JAX defaults; of the JAX config's
-mesh fields, the sequence-parallel ones (``seq_axis``, ``data_axis``,
-``mesh_shape``, ``mesh_axes``) are here, ``tp_axis`` is not (ROADMAP).
+fields the port reads are here, with the JAX defaults, the mesh fields
+(``seq_axis``, ``tp_axis``, ``data_axis``, ``mesh_shape``, ``mesh_axes``)
+among them.
 
     baseline  — conv ResBlock x 1 per stage, no outer residual
     1mlp      — VSSG, gl_merge=True, ps_global=4, ps_local=2
@@ -69,6 +69,9 @@ class ModelConfig:
     # itself is passed to build_net(seq_mesh=...): it is not config.
     seq_axis: Any = None    # Optional[str]
     data_axis: Any = None   # Optional[str]
+    # channel-split (tensor-parallel) SS2D scans over this mesh axis (whole
+    # B/C groups or sub-group shards, parallel/tp_scan.py); not with seq_axis
+    tp_axis: Any = None     # Optional[str]
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -97,8 +100,9 @@ class TrainConfig:
     crop_size: int = 256
     seed: int = 1234
     model_save_dir: str = "results/weights"
-    # the process mesh: None (one process) or (data, seq) = (1, M), M ranks
-    # of sequence parallelism
+    # the process mesh (--mesh_shape): None = data parallel over the largest
+    # device count dividing batch_size; (N,) over ("data",); (D, M) over
+    # ("data", "seq")
     mesh_shape: Any = None  # Optional[Tuple[int, ...]]
     mesh_axes: Tuple[str, ...] = ("data",)
 

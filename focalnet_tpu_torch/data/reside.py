@@ -107,12 +107,16 @@ class TrainLoader:
     Yields (hazy, gt) float32 arrays (batch, crop, crop, 3).  An epoch is
     len(dataset) // batch batches: the partial last batch is dropped, as the
     JAX loader does.  A producer thread decodes ``prefetch`` batches ahead,
-    each batch's examples in a pool of ``num_workers`` threads."""
+    each batch's examples in a pool of ``num_workers`` threads.  ``rows``
+    (indices into each batch) makes it decode and yield only those rows of
+    every batch, with the crops and flips of the whole batch (a data-parallel
+    rank's share)."""
 
     def __init__(self, path: str, batch_size: int, num_workers: int = 8,
-                 crop: int = 256, seed: int = 1234, prefetch: int = 4):
+                 crop: int = 256, seed: int = 1234, prefetch: int = 4, rows=None):
         self.ds = ResideDataset(os.path.join(path, "train"))
         self.batch_size = batch_size
+        self.rows = None if rows is None else np.asarray(rows)
         self.crop = crop
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
@@ -140,6 +144,8 @@ class TrainLoader:
                         if stop.is_set():
                             return
                         idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+                        if self.rows is not None:
+                            idxs = idxs[self.rows]
                         pairs = list(ex.map(self._make_example, idxs, seeds[idxs]))
                         q.put((np.stack([p[0] for p in pairs]),
                                np.stack([p[1] for p in pairs])))
@@ -168,16 +174,18 @@ class TrainLoader:
 
 class EvalLoader:
     """Sequential batch-1 loader over a split.  Yields (hazy, gt, name) with
-    hazy and gt (1, H, W, 3) at full size."""
+    hazy and gt (1, H, W, 3) at full size; with ``shard=(i, n)`` only images
+    i, i + n, i + 2n, ..."""
 
-    def __init__(self, path: str, split: str = "test"):
+    def __init__(self, path: str, split: str = "test", shard=(0, 1)):
         self.ds = ResideDataset(os.path.join(path, split))
+        self.shard = shard
 
     def __len__(self):
-        return len(self.ds)
+        return len(range(self.shard[0], len(self.ds), self.shard[1]))
 
     def __iter__(self):
-        for i in range(len(self.ds)):
+        for i in range(self.shard[0], len(self.ds), self.shard[1]):
             hazy, gt, name = self.ds.load_pair(i)
             yield hazy[None], gt[None], name
 

@@ -50,13 +50,19 @@ def _forward(model):
         model.train(was_training)
 
 
-def validate(model, data_dir: str, factor: int = 32, batch_size: int = 1) -> float:
+def validate(model, data_dir: str, factor: int = 32, batch_size: int = 1,
+             mesh=None) -> float:
     """Mean PSNR of ``model`` over ``data_dir/test``.
 
     ``batch_size > 1`` stacks images of one padded shape into one forward,
     with the same metrics: a bucket is run when it is full or the next
     image's padded shape differs, and a partial bucket runs at its own
-    size.  The reference protocol is batch 1."""
+    size.  The reference protocol is batch 1.
+
+    Under a ``mesh`` (a :class:`..parallel.Mesh`; ``model`` mesh-free) the
+    ranks split the images, image i to rank ``i % size``, and the PSNR sum
+    and count are all-reduced: every rank returns the mean over all of them,
+    and no rank waits in a collective longer than one rank's share takes."""
     psnr_adder = Adder()
     print("Start Validation...")
     buf = []  # (padded, h, w, gt), one padded shape
@@ -70,13 +76,21 @@ def validate(model, data_dir: str, factor: int = 32, batch_size: int = 1) -> flo
                 psnr_adder(psnr_skimage(np.clip(pred[:h, :w], 0.0, 1.0), gt[0]))
             buf.clear()
 
-        for hazy, gt, _ in EvalLoader(data_dir, "test"):
+        shard = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+        for hazy, gt, _ in EvalLoader(data_dir, "test", shard=shard):
             padded, (h, w) = pad_to_multiple(hazy, factor)
             if buf and (len(buf) >= batch_size or buf[0][0].shape != padded.shape):
                 flush()
             buf.append((padded, h, w, gt))
         flush()
-    return psnr_adder.average()
+    if mesh is None:
+        return psnr_adder.average()
+    from focalnet_tpu_torch.parallel.mesh import all_reduce
+
+    total, count = all_reduce(torch.tensor([psnr_adder.num, psnr_adder.count],
+                                           dtype=torch.float64, device=mesh.device),
+                              mesh).tolist()
+    return total / count if count else 0.0
 
 
 def evaluate(model, data_dir: str, result_dir: Optional[str] = None,

@@ -5,9 +5,11 @@
 images into ``result_dir``, whole images (reflect-padded to a multiple of
 ``factor``, cropped back, clamped, saved with the +0.5/255 offset) or
 ``tile`` crops.  One thread decodes the next item and one encodes earlier
-answers while the card computes.  :func:`tiled_forward` is also serve's
-``--tile`` mode: overlapping (tile, tile) crops, feather-blended back
-together, so device memory is bounded by the tile.
+answers while the card computes; under a process mesh every rank runs it
+and forwards its rows of each batch (JAX's batches sharded over ``data``).
+:func:`tiled_forward` is also serve's ``--tile`` mode: overlapping (tile,
+tile) crops, feather-blended back together, so device memory is bounded by
+the tile.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from focalnet_tpu_torch.data.png import read_png_size
 from focalnet_tpu_torch.data.reside import _load_image_u8, pil_image
 from focalnet_tpu_torch.evaluation.metrics import pad_to_multiple, save_image
+from focalnet_tpu_torch.parallel.mesh import all_gather, local_rows
 from focalnet_tpu_torch.utils.device import resolve_device
 from focalnet_tpu_torch.utils.meters import Adder
 
@@ -166,7 +169,7 @@ def tiled_forward(fwd_batch, img: np.ndarray, tile: int, overlap: int,
 
 def infer(model, input_path: str, result_dir: str, factor: int = 32,
           batch_size: int = 1, tile: int = 0, tile_overlap: int = 32,
-          device=None) -> dict:
+          device=None, mesh=None) -> dict:
     """Dehaze every image under ``input_path`` (a file or a directory) into
     ``result_dir`` with ``model`` (a MIMOUNet) on ``device`` (default: the
     CUDA card; without one this raises).  Returns {"count", "avg_time"}.
@@ -179,8 +182,22 @@ def infer(model, input_path: str, result_dir: str, factor: int = 32,
     (:func:`tiled_forward`), ``batch_size`` of them per forward.
 
     An image's time runs from the upload to the prediction on the host (a
-    batch's divided by its images), so it holds the forward on the card."""
+    batch's divided by its images), so it holds the forward on the card.
+
+    ``mesh``: this rank's :class:`..parallel.Mesh` (every rank calls this).
+    Each batch is sharded over its ``data`` axis, ``batch_size`` a multiple
+    of that axis's size as in JAX: each rank forwards its rows
+    (:func:`..parallel.mesh.local_rows`), and one with none (a partial
+    bucket smaller than the axis) skips the forward; the ranks of a ``seq``
+    row, whose model shards its scans over L, take the same rows and so
+    forward or skip together.  Whole images: the ranks of ``seq`` index 0
+    save their rows' images.  Tiles: the tile batches' predictions are
+    all-gathered over ``data`` and rank 0 blends and saves."""
     device = resolve_device(device)
+    n_data = mesh.shape.get("data", 1) if mesh is not None else 1
+    if batch_size % n_data:
+        raise ValueError(f"batch_size {batch_size} must be divisible by the mesh data-axis "
+                         f"size {n_data} for sharded inference")
     model = model.to(device).eval()
     fwd = u8_forward(model, device)
     os.makedirs(result_dir, exist_ok=True)
@@ -205,12 +222,19 @@ def infer(model, input_path: str, result_dir: str, factor: int = 32,
             h, w = img.shape[:2]
             return path, _pad_to_min(img, tile, tile), h, w
 
+        def fwd_tiles(stack):
+            pred = fwd(stack[local_rows(len(stack), mesh)])
+            if n_data == 1:
+                return pred
+            return all_gather(pred, mesh, "data").reshape(len(stack), *pred.shape[1:])
+
         def run_tiled(item, saver):
             path, img, h, w = item
             tm = time.time()
-            pred = tiled_forward(fwd, img, tile, tile_overlap, bs)
+            pred = tiled_forward(fwd_tiles, img, tile, tile_overlap, bs)
             time_adder(time.time() - tm)
-            saver.submit(save, pred, path, h, w)
+            if mesh is None or mesh.rank == 0:
+                saver.submit(save, pred, path, h, w)
 
         _pipeline(files, decode_one, run_tiled, save_cap=4)
     else:
@@ -224,20 +248,25 @@ def infer(model, input_path: str, result_dir: str, factor: int = 32,
                 by_shape.setdefault(key, []).append(path)
             path_batches = [group[i : i + batch_size] for group in by_shape.values()
                             for i in range(0, len(group), batch_size)]
+        writes = mesh is None or mesh.axis_index("seq") == 0
 
         def decode(paths):
             batch = []
-            for path in paths:
+            for path in paths[local_rows(len(paths), mesh)]:
                 padded, (h, w) = pad_to_multiple(_load_image_u8(path)[None], factor)
                 batch.append((path, padded, h, w))
-            return batch
+            return len(paths), batch
 
-        def run(batch, saver):
+        def run(item, saver):
+            n, batch = item
+            if not batch:  # no rows of this batch on this rank
+                return
             tm = time.time()
             preds = fwd(np.concatenate([b[1] for b in batch], axis=0)).cpu().numpy()
-            time_adder((time.time() - tm) / len(batch))
+            time_adder((time.time() - tm) / n)
             for pred, (path, _, h, w) in zip(preds, batch):
-                saver.submit(save, pred, path, h, w)
+                if writes:
+                    saver.submit(save, pred, path, h, w)
 
         _pipeline(path_batches, decode, run, save_cap=2 * max(batch_size, 1))
 

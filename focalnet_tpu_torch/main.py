@@ -7,6 +7,7 @@ Usage:
     python -m focalnet_tpu_torch.main --mode serve --test_model <reference .pkl>
     python -m focalnet_tpu_torch.main --flops_report --mode serve
     python -m focalnet_tpu_torch.main --preset 1mlp --compute_dtype bfloat16 --ssm_out_dtype bfloat16
+    python -m focalnet_tpu_torch.main --mesh_shape 2 --batch_size 4         # data parallel
     python -m focalnet_tpu_torch.main --mode test --mesh_shape 1,2 --test_model <pkl>
 
 ``--preset`` takes the JAX CLI's four (``baseline``, ``1mlp``, ``1mlp_g2``,
@@ -20,13 +21,27 @@ runs ``--mode``.  Every mode writes the model and train configs to
 ``<model_save_dir>/config.json`` and makes ``--result_dir``, as the JAX CLI
 does.  Runs on the CUDA card unless ``--device cpu``.
 
-``--mesh_shape 1,M`` (``--mode test`` and ``train``) runs the mode on M ranks
-of a sequence-parallel mesh, one process each (``parallel.mesh.spawn``):
-every SS2D scan is sharded over L across them.  Rank 0 prints, logs and
-writes files; :func:`main` returns each rank's report (its kernel launches,
-peak memory and the mode's result).  Any other mesh shape, and a mesh under
-``--mode infer`` or ``serve``, raises: data parallelism and the sharded
-serving paths are ROADMAP.md Queue 1 item 6.
+``--mesh_shape`` has the JAX CLI's meaning in every mode.  A mesh of more
+than one point runs the mode on that many ranks, one process each
+(``parallel.mesh.spawn``); rank 0 prints, logs and writes files, and
+:func:`main` returns each rank's report (its kernel launches, peak memory
+and the mode's result).  A mesh of one point (``1``, ``1,1``) runs in this
+process, as on one JAX device.
+
+- ``--mode train``: ``N`` trains data parallel on N ranks (each takes its
+  rows of every batch; the gradients are averaged); ``D,M`` dp x sp (the
+  batch over D, every SS2D scan sharded over L across M); ``''`` (the
+  default) is data parallel over the largest device count dividing
+  ``--batch_size`` (the cards, or 1 under ``--device cpu``).
+- ``--mode test`` (batch 1): ``1,M`` is sequence-parallel; ``N`` runs
+  without a mesh; ``D,M`` with D > 1 prints JAX's note and runs without one.
+- ``--mode infer``: ``N`` shards every batch over N ranks, ``1,M`` shards
+  the scans over L, ``D,M`` both; a ``--valid_batch`` of 1 is raised to the
+  data axis's size (with JAX's note).
+- ``--mode serve``: the mesh is ignored; the mesh-free model serves.
+
+Every mode writes the shape and its axes to ``config.json`` as the JAX CLI
+does.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import os
 import random
 import sys
@@ -47,34 +63,46 @@ import torch
 def main(argv=None, inp=None, out=None):
     """Parse ``argv`` and run; ``inp``/``out`` replace stdin/stdout (serve).
     Returns the report's numbers under ``--flops_report``, else what the
-    mode returns; under ``--mesh_shape`` each rank's report (a list by rank,
-    or this rank's report when a process group is already running)."""
+    mode returns; on a mesh of ranks each rank's report (a list by rank, or
+    this rank's report when a process group is already running)."""
     args = parse_args(argv)
-    from focalnet_tpu_torch.parallel.mesh import parse_mesh_shape
-
-    mesh_shape = parse_mesh_shape(args.mesh_shape)
-    if mesh_shape:
-        return _run_mesh(args, argv, mesh_shape)
-    return _main(args, None, inp, out)
+    shape = _ranks_shape(args)
+    if shape is None:
+        return _main(args, None, inp, out)
+    return _run_mesh(args, argv, shape)
 
 
-def _run_mesh(args, argv, mesh_shape):
-    """``--mesh_shape``: check it, then run :func:`_rank_main` on every rank
-    of a new process group, or on this rank of the one that is running."""
+def _ranks_shape(args):
+    """The mesh that ``args`` runs on ranks, as the JAX CLI reads
+    ``--mesh_shape`` for the mode; None to run in this process."""
+    from focalnet_tpu_torch.parallel.mesh import auto_mesh_shape, check_shape, parse_mesh_shape
+
+    shape = parse_mesh_shape(args.mesh_shape)
+    if shape is not None:
+        check_shape(shape)
+    if args.mode == "train" and shape is None:
+        cards = max(torch.cuda.device_count(), 1) if args.device != "cpu" else 1
+        shape = auto_mesh_shape(args.batch_size, cards)
+    if (shape is None or math.prod(shape) == 1 or args.mode == "serve"
+            or (args.mode == "test" and (len(shape) == 1 or shape[0] > 1))):
+        return None
+    return shape
+
+
+def _run_mesh(args, argv, shape):
+    """Run :func:`_rank_main` on every rank of a new process group of
+    ``shape``, or on this rank of the one that is running (which may be
+    larger: its first ``prod(shape)`` ranks run, the others return None)."""
     import torch.distributed as dist
 
-    from focalnet_tpu_torch.parallel.mesh import check_shape, make_mesh, rank_device, spawn
+    from focalnet_tpu_torch.parallel.mesh import make_mesh, rank_device, spawn
     from focalnet_tpu_torch.utils.device import resolve_device
 
-    check_shape(mesh_shape)
-    if args.mode not in ("test", "train"):
-        raise NotImplementedError(f"--mesh_shape under --mode {args.mode} is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 6")
     device_type = resolve_device(args.device or None).type
     if dist.is_initialized():
-        return _rank_main(make_mesh(mesh_shape, device=rank_device(dist.get_rank(),
-                                                                   device_type)), argv)
-    return spawn(_rank_main, mesh_shape, device_type, args=(argv,))
+        mesh = make_mesh(shape, device=rank_device(dist.get_rank(), device_type))
+        return None if mesh is None else _rank_main(mesh, argv)
+    return spawn(_rank_main, shape, device_type, args=(argv,))
 
 
 def _rank_main(mesh, argv):
@@ -136,6 +164,7 @@ def _main(args, mesh, inp=None, out=None):
     torch.manual_seed(args.seed)
 
     from focalnet_tpu_torch.configs import PRESETS, TrainConfig
+    from focalnet_tpu_torch.parallel.mesh import default_axes, parse_mesh_shape
     from focalnet_tpu_torch.utils.device import resolve_device
 
     device = mesh.device if mesh is not None else resolve_device(args.device or None)
@@ -150,11 +179,13 @@ def _main(args, mesh, inp=None, out=None):
         overrides["ssm_d_state"] = args.ssm_d_state
     if args.scan_backend:
         overrides["scan_backend"] = args.scan_backend
-    if mesh is not None:
+    # the JAX CLI's mesh fields: a two-axis shape names the seq axes
+    mesh_shape = parse_mesh_shape(args.mesh_shape)
+    if mesh_shape is not None and len(mesh_shape) > 1:
         overrides.update(seq_axis="seq", data_axis="data")
     train_cfg = TrainConfig(
-        mesh_shape=tuple(mesh.shape.values()) if mesh else None,
-        mesh_axes=tuple(mesh.shape) if mesh else ("data",),
+        mesh_shape=mesh_shape,
+        mesh_axes=default_axes(mesh_shape or (1,)),
         data_dir=args.data_dir, batch_size=args.batch_size,
         learning_rate=args.learning_rate, num_epoch=args.num_epoch,
         grad_accum=args.grad_accum, print_freq=args.print_freq,
@@ -177,14 +208,16 @@ def _main(args, mesh, inp=None, out=None):
 
 
 def _run_mode(args, train_cfg, device, overrides, inp, out, mesh=None):
-    """``--mode train``, ``test``, ``infer`` or ``serve`` (under a ``mesh``:
-    train and test, on this rank)."""
+    """``--mode train``, ``test``, ``infer`` or ``serve``, on this rank of
+    ``mesh`` or in this process."""
     from focalnet_tpu_torch.models import build_net
 
+    # the sharded scans' mesh: a run on ranks with a seq axis
+    seq_mesh = mesh if mesh is not None and "seq" in mesh.shape else None
     if args.mode == "train":
         from focalnet_tpu_torch.train import train
 
-        model = build_net(args.preset, device=device, seq_mesh=mesh,
+        model = build_net(args.preset, device=device, seq_mesh=seq_mesh,
                           generator=torch.Generator().manual_seed(args.seed), **overrides)
         return train(model, train_cfg, resume=args.resume or None,
                      log_file=os.path.join(args.model_save_dir, "train.log"), mesh=mesh)
@@ -197,21 +230,31 @@ def _run_mode(args, train_cfg, device, overrides, inp, out, mesh=None):
         raise SystemExit("error: --mode infer needs --input <image file or directory>")
     if args.mode != "test" and (args.pad_factor % 32 or args.pad_factor <= 0):
         raise SystemExit("error: --pad_factor must be a positive multiple of 32")
-    model = build_net(args.preset, device=device, seq_mesh=mesh, **overrides)
+    model = build_net(args.preset, device=device, seq_mesh=seq_mesh, **overrides)
     model.load_state_dict(load_checkpoint(args.test_model), strict=True)
+    shape = train_cfg.mesh_shape
 
     if args.mode == "test":
         from focalnet_tpu_torch.evaluation.evaluator import evaluate
 
+        if shape is not None and len(shape) > 1 and shape[0] > 1:
+            print("note: --mode test is batch-1; ignoring the dp axis of "
+                  "--mesh_shape (use \"1,M\" for sequence-parallel eval)")
         # every rank runs the forwards (they are collective); rank 0 saves
         return evaluate(model, args.data_dir, result_dir=args.result_dir,
                         save_images=args.save_image and (mesh is None or mesh.rank == 0))
     if args.mode == "infer":
         from focalnet_tpu_torch.evaluation.infer import infer
 
+        batch = args.valid_batch
+        if shape is not None and math.prod(shape) > 1 and batch == 1:
+            # batch 1 cannot shard over the data axis: one image a data rank
+            batch = shape[0]
+            print(f"note: --valid_batch raised to {batch} (one image per "
+                  f"'data'-axis device of --mesh_shape {args.mesh_shape})")
         return infer(model, args.input, args.result_dir, factor=args.pad_factor,
-                     batch_size=args.valid_batch, tile=args.tile,
-                     tile_overlap=args.tile_overlap, device=device)
+                     batch_size=batch, tile=args.tile, tile_overlap=args.tile_overlap,
+                     device=device, mesh=mesh)
 
     from focalnet_tpu_torch.evaluation.serve import serve
 
@@ -298,12 +341,14 @@ def parse_args(argv=None):
                         "over a training run's")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--mesh_shape", type=str, default="",
-                   help="device mesh, comma ints: '' = auto DP over all "
-                        "devices dividing batch_size; '4' = DP over 4; "
-                        "'2,4' = dp x sp (batch on data, SS2D scans "
-                        "sequence-sharded over seq).  The port runs '' (one "
-                        "process) and '1,M' (--mode test and train on M "
-                        "ranks, one process each); the others raise")
+                   help="device mesh, comma ints, one process a rank: '' = "
+                        "auto DP over all devices dividing batch_size; '4' "
+                        "= DP over 4; '2,4' = dp x sp (batch on data, SS2D "
+                        "scans sequence-sharded over seq).  --mode train "
+                        "takes all three; test runs '1,M' sequence-parallel "
+                        "and the others without a mesh (batch 1); infer "
+                        "shards its batches over data and its scans over "
+                        "seq; serve ignores the mesh")
     p.add_argument("--flops_report", action="store_true",
                    help="print params and GFLOPs at 256x256, then run --mode")
     p.add_argument("--compute_dtype", type=str, default="",

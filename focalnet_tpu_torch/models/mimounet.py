@@ -61,7 +61,7 @@ class StageStack(nn.Module):
                 use_checkpoint=c.use_checkpoint,
                 ssm_proj_dtype=config_dtype(c.ssm_proj_dtype),
                 ssm_out_dtype=config_dtype(c.ssm_out_dtype),
-                seq_mesh=seq_mesh, seq_axis=c.seq_axis,
+                seq_mesh=seq_mesh, seq_axis=c.seq_axis, tp_axis=c.tp_axis,
             )
             for _ in range(c.num_res)
         ])
@@ -75,8 +75,9 @@ class StageStack(nn.Module):
 
 class MIMOUNet(nn.Module):
     """3-scale MIMO-UNet, dims (32, 64, 128).  ``seq_mesh``: the
-    :class:`focalnet_tpu_torch.parallel.Mesh` of ``cfg.seq_axis``'s
-    sequence-parallel SS2D scans (not config; no parameters)."""
+    :class:`focalnet_tpu_torch.parallel.Mesh` of the sharded SS2D scans,
+    sequence-parallel over ``cfg.seq_axis`` or channel-split over
+    ``cfg.tp_axis`` (not config; no parameters)."""
 
     def __init__(self, cfg: ModelConfig, seq_mesh=None):
         super().__init__()
@@ -152,8 +153,8 @@ def build_net(preset: str = "1mlp_g2", device=None, generator=None, seq_mesh=Non
     """Build ``preset`` (with config ``overrides``) in eval mode on ``device``
     (default: the CUDA card; without one this raises), its weights drawn by
     the reference init laws from ``generator`` (default: seed 0).
-    ``seq_mesh``: the mesh of the sequence-parallel scans (pass
-    ``seq_axis``/``data_axis`` as overrides)."""
+    ``seq_mesh``: the mesh of the sharded scans (pass ``seq_axis`` or
+    ``tp_axis``, and ``data_axis``, as overrides)."""
     device = resolve_device(device)
     cfg = PRESETS[preset].replace(**overrides)
     model = MIMOUNet(cfg, seq_mesh)
@@ -165,7 +166,8 @@ def build_net(preset: str = "1mlp_g2", device=None, generator=None, seq_mesh=Non
 @contextlib.contextmanager
 def mesh_free(model: nn.Module):
     """Within the block every SS2D of ``model`` runs its dense path (the
-    JAX package's mesh-free twin with the same parameters)."""
+    JAX package's mesh-free twin with the same parameters), whether its
+    mesh shards the scans over ``seq_axis`` or ``tp_axis``."""
     from focalnet_tpu_torch.models.ss2d import SS2D
 
     ops = [m for m in model.modules() if isinstance(m, SS2D)]

@@ -1,9 +1,10 @@
 """SS2D — the 2-D selective-scan operator (counterpart of ``focalnet_tpu/models/ss2d.py``).
 
 in_proj -> x/z split -> depthwise 3x3 -> SiLU -> 4-direction selective scan
--> out_norm LayerNorm -> gate by z -> out_proj.  The dense path and the
-sequence-parallel one (``seq_axis`` with a ``seq_mesh``) of the JAX module
-are here; its tensor-parallel branch is not (ROADMAP).
+-> out_norm LayerNorm -> gate by z -> out_proj.  The dense path, the
+sequence-parallel one (``seq_axis`` with a ``seq_mesh``) and the
+channel-split one (``tp_axis`` with the mesh, passed as ``seq_mesh`` as in
+the JAX module) are here.
 
 Precision (the JAX module's ``dtype``, ``proj_dtype``, ``ssm_out_dtype``):
 the activations arrive in the model's compute dtype and every product runs
@@ -20,10 +21,16 @@ rows k*d_inner:(k+1)*d_inner): k = 0 row raster, 1 column raster, 2 row
 raster reversed, 3 column raster reversed.  Per raster the projections run
 once on the raster's own (B, D, L) operand, and the reversed direction is
 the scan's ``reverse`` mode on the same operands with the forward
-direction's output as ``y_accum``.  The sequence-parallel path stacks the
-two rasters into one (B, 2 d_inner, L) operand with two B/C groups and makes
-two sequence-sharded calls, the forward pair and the reversed pair, whose
-outputs it adds (JAX's stacked-pair form).
+direction's output as ``y_accum``.  The sharded paths stack the two
+rasters into one (B, 2 d_inner, L) operand with two B/C groups and make two
+sharded calls, the forward pair and the reversed pair (JAX's stacked-pair
+form): the sequence-parallel path adds their outputs; the channel-split one
+gives the forward pair's shard to the reversed pair's kernel as its
+``y_accum`` and gathers the channels once.
+
+DropPath and Dropout under data parallelism (:func:`set_dropout_generator`
+with ``data_shard``) draw the masks of the whole batch, as one process
+would, and keep this rank's rows.
 """
 
 from __future__ import annotations
@@ -100,6 +107,7 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator = None
+        self.data_shard = (0, 1)
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
@@ -108,8 +116,8 @@ class DropPath(nn.Module):
             raise RuntimeError("DropPath in training mode needs a generator: "
                                "call set_dropout_generator(model, generator)")
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        mask = _draw((x.shape[0],) + (1,) * (x.dim() - 1), self.generator, x.device,
+                     self.data_shard) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -125,6 +133,7 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator = None
+        self.data_shard = (0, 1)
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
@@ -133,16 +142,31 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in training mode needs a generator: "
                                "call set_dropout_generator(model, generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        mask = _draw(tuple(x.shape), self.generator, x.device, self.data_shard) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+def _draw(shape, generator, device, data_shard):
+    """Uniform draws for this rank's ``shape[0]`` rows: those of a batch of
+    ``shape[0] * n`` drawn whole, rows ``i * shape[0]`` on, for
+    ``data_shard = (i, n)``; with (0, 1) one draw of ``shape``."""
+    i, n = data_shard
+    b = shape[0]
+    return torch.rand((b * n,) + tuple(shape[1:]), generator=generator,
+                      device=device)[i * b:(i + 1) * b]
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator,
+                          data_shard=(0, 1)) -> None:
     """Give every DropPath and Dropout of ``model`` the one ``generator``
-    (on the device the model runs on) to draw its masks from."""
+    (on the device the model runs on) to draw its masks from.
+    ``data_shard = (i, n)``: this rank is data index ``i`` of ``n`` and its
+    batch the ``i``-th of ``n`` equal blocks of the whole, whose masks are
+    drawn whole (the masks one process draws for the whole batch)."""
     for m in model.modules():
         if isinstance(m, (DropPath, Dropout)):
             m.generator = generator
+            m.data_shard = tuple(data_shard)
 
 
 class Mlp(nn.Module):
@@ -161,14 +185,21 @@ class Mlp(nn.Module):
 
 
 class SS2D(nn.Module):
-    """2-D selective scan operator on NHWC feature maps (dense path)."""
+    """2-D selective scan operator on NHWC feature maps: the dense path, or
+    with ``seq_mesh`` (a :class:`..parallel.Mesh`) the scans sharded over L
+    along ``seq_axis`` or over the channels along ``tp_axis`` (one of the
+    two)."""
 
     def __init__(self, d_model, d_state=16, ssm_ratio=2.0, dt_rank="auto",
                  act="silu", d_conv=3, conv_bias=True, dropout=0.0, bias=False,
                  dt_min=0.001, dt_max=0.1, dt_scale=1.0, dt_init_floor=1e-4,
                  initialize="v0", forward_type="v4", scan_backend="auto",
-                 proj_dtype=None, out_dtype=None, seq_mesh=None, seq_axis=None):
+                 proj_dtype=None, out_dtype=None, seq_mesh=None, seq_axis=None,
+                 tp_axis=None):
         super().__init__()
+        if seq_mesh is not None and seq_axis is not None and tp_axis is not None:
+            raise ValueError("seq_axis and tp_axis both shard the same scan call; pick one "
+                             "(they compose with data_axis, not each other)")
         flags = parse_forward_type(forward_type)
         if flags["out_norm"] != "ln" or flags["disable_z"] or flags["disable_z_act"]:
             raise NotImplementedError(
@@ -186,9 +217,9 @@ class SS2D(nn.Module):
         self.out_dtype = out_dtype or torch.float32
         self.dt_scale = dt_scale
         self.dt_range = (dt_min, dt_max, dt_init_floor)
-        # the sequence-parallel scans: a parallel.Mesh (not a module: it holds
-        # no parameters, and the state dict does not change)
-        self.seq_mesh, self.seq_axis = seq_mesh, seq_axis
+        # the sharded scans' parallel.Mesh (not a module: it holds no
+        # parameters, and the state dict does not change)
+        self.seq_mesh, self.seq_axis, self.tp_axis = seq_mesh, seq_axis, tp_axis
 
         self.in_proj = Linear(d_model, 2 * D, bias=bias)
         self.conv2d = Conv2d(D, D, d_conv, padding=(d_conv - 1) // 2,
@@ -227,8 +258,8 @@ class SS2D(nn.Module):
         A = -torch.exp(self.A_logs.float())  # (4D, N), k-major rows
         Ds = self.Ds.float()
         bias = self.dt_projs_bias.reshape(-1).float()
-        if self.seq_axis is not None and self.seq_mesh is not None:
-            return self._core_seq(x, A, Ds, bias)
+        if self.seq_mesh is not None and (self.seq_axis or self.tp_axis) is not None:
+            return self._core_sharded(x, A, Ds, bias)
 
         y = None
         for i, col in enumerate((False, True)):
@@ -255,34 +286,44 @@ class SS2D(nn.Module):
             y = yr if y is None else y + yr
         return self.out_norm(y.permute(0, 2, 3, 1).float()).to(x.dtype)
 
-    def _core_seq(self, x, A, Ds, bias):
-        """``_core`` with every scan sharded over L across the mesh's
-        ``seq_axis`` (L a multiple of its size): the row and column rasters
-        stacked into one (B, 2D, L) operand, G = 2 B/C groups, one call for
-        the forward pair (k = 0, 1) and one reversed for the other (k = 2, 3)."""
+    def _core_sharded(self, x, A, Ds, bias):
+        """``_core`` with every scan sharded across the mesh: the row and
+        column rasters stacked into one (B, 2D, L) operand, G = 2 B/C groups,
+        one call for the forward pair (k = 0, 1) and one reversed for the
+        other (k = 2, 3).  Over ``seq_axis`` (L a multiple of its size) the
+        two calls' outputs are added; over ``tp_axis`` the reversed pair's
+        kernel adds the forward pair's channel shard (``y_accum``) and the
+        channels are gathered once."""
         from focalnet_tpu_torch.parallel.seq_scan import selective_scan_seq_sharded
+        from focalnet_tpu_torch.parallel.tp_scan import selective_scan_tp
 
         Bsz, D, H, W = x.shape
         N, R, L = self.d_state, self.rank, H * W
         x2 = torch.stack([x.reshape(Bsz, D, L), x.transpose(2, 3).reshape(Bsz, D, L)],
                          dim=1)  # (B, 2, D, L)
+        u2 = x2.reshape(Bsz, 2 * D, L)
 
-        def scan(k0, reverse):
+        def scan(k0, reverse, **kw):
             # dt, B, C of directions k0 (row) and k0 + 1 (column)
             ks = slice(k0, k0 + 2)
             xd = self._project(self.x_proj_weight[ks], x2, x.dtype)  # (B, 2, R+2N, L)
             dts, Bs, Cs = torch.split(xd, [R, N, N], dim=2)
             delta = self._project(self.dt_projs_weight[ks], dts, x.dtype)  # (B, 2, D, L)
             rows = slice(k0 * D, (k0 + 2) * D)
-            return selective_scan_seq_sharded(
-                x2.reshape(Bsz, 2 * D, L), delta.reshape(Bsz, 2 * D, L), A[rows],
-                Bs.contiguous(), Cs.contiguous(), D=Ds[rows], delta_bias=bias[rows],
-                delta_softplus=True, mesh=self.seq_mesh, out_dtype=self.out_dtype,
-                backend=self.scan_backend, reverse=reverse,
-            ).reshape(Bsz, 2, D, L)
+            sharded = (selective_scan_seq_sharded if self.tp_axis is None
+                       else selective_scan_tp)
+            return sharded(
+                u2, delta.reshape(Bsz, 2 * D, L), A[rows], Bs.contiguous(), Cs.contiguous(),
+                D=Ds[rows], delta_bias=bias[rows], delta_softplus=True, mesh=self.seq_mesh,
+                axis=self.tp_axis or self.seq_axis, out_dtype=self.out_dtype,
+                backend=self.scan_backend, reverse=reverse, **kw)
 
-        ys_f = scan(0, False)
-        ys = scan(2, True) + ys_f
+        if self.tp_axis is None:
+            ys_f = scan(0, False)
+            ys = scan(2, True) + ys_f
+        else:
+            ys = scan(2, True, y_accum=scan(0, False, gather=False))
+        ys = ys.reshape(Bsz, 2, D, L)
         y = ys[:, 0].reshape(Bsz, D, H, W) + ys[:, 1].reshape(Bsz, D, W, H).transpose(2, 3)
         return self.out_norm(y.permute(0, 2, 3, 1).float()).to(x.dtype)
 

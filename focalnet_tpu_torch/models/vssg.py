@@ -56,7 +56,8 @@ class VSSBlock(nn.Module):
                  ssm_conv_bias=True, ssm_drop_rate=0.0, ssm_init="v0",
                  forward_type="v4", mlp_ratio=4.0, mlp_act="gelu",
                  mlp_drop_rate=0.0, scan_backend="auto", use_checkpoint=False,
-                 ssm_proj_dtype=None, ssm_out_dtype=None, seq_mesh=None, seq_axis=None):
+                 ssm_proj_dtype=None, ssm_out_dtype=None, seq_mesh=None, seq_axis=None,
+                 tp_axis=None):
         super().__init__()
         self.ssm_branch = ssm_ratio > 0
         self.mlp_branch = mlp_ratio > 0
@@ -71,6 +72,7 @@ class VSSBlock(nn.Module):
                 initialize=ssm_init, forward_type=forward_type,
                 scan_backend=scan_backend, proj_dtype=ssm_proj_dtype,
                 out_dtype=ssm_out_dtype, seq_mesh=seq_mesh, seq_axis=seq_axis,
+                tp_axis=tp_axis,
             )
         if self.mlp_branch:
             self.norm2 = LayerNorm(hidden_dim, eps=1e-5)

@@ -1,9 +1,11 @@
 """Sequence-sharded selective scan over a ``torch.distributed`` group
 (counterpart of ``focalnet_tpu/parallel/seq_scan.py``).
 
-The operands arrive whole on every rank (replicated activations, as every
-rank runs the model's other layers on the same inputs).  Each of the ``M``
-ranks of the mesh's ``seq`` axis takes one contiguous ``L / M`` block and:
+The operands arrive whole on every rank of a ``seq`` row (replicated
+activations, as those ranks run the model's other layers on the same
+inputs; under a ``(data, seq)`` mesh each row holds its data index's rows
+of the batch).  Each of the ``M`` ranks of the row takes one contiguous
+``L / M`` block and:
 
 1. runs the scan kernel on its block through the segment API, which gives
    its output from a zero state and its leaving state ``h_last``; its total
@@ -21,8 +23,8 @@ The block taken from a replicated operand gets the all-gather of the
 blocks' gradients (every rank's layers before the scan need the whole
 gradient); a replicated parameter (``A``, ``D``, the dt bias) the sum over
 ranks; the gathered output gives each rank its own block of ``dy``, with
-no reduction, since ``dy`` is the same on every rank; and the gathered
-aggregates the sum over ranks of their cotangents, each rank's ``h_last``
+no reduction, since ``dy`` is the same on every rank of the row; and the
+gathered aggregates the sum over the row of their cotangents, each rank's ``h_last``
 feeding the prefixes of the ranks after it.  That sum is the ``dh_last``
 with which the backward kernel's segment API starts.  The TPU layout
 (``pre_interleaved``) has no counterpart.
@@ -34,70 +36,33 @@ import torch
 import torch.nn.functional as F
 
 from focalnet_tpu_torch.ops.selective_scan import selective_scan
-from focalnet_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce
+from focalnet_tpu_torch.parallel.mesh import (
+    GatherShards,
+    Mesh,
+    SumOverAxis,
+    TakeShard,
+    all_gather,
+    all_reduce,
+)
 
 # elements of one (batch, dim, N, block) tensor of the prefix correction
 CORRECTION_BLOCK_ELEMS = 1 << 24
 
 
-def _block(mesh: Mesh, L: int) -> slice:
-    n, i = mesh.shape["seq"], mesh.axis_index("seq")
-    return slice(i * (L // n), (i + 1) * (L // n))
-
-
-class _TakeBlock(torch.autograd.Function):
-    """A replicated (..., L) tensor -> this rank's block; backward: the
-    blocks' gradients all-gathered into the whole."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x[..., _block(mesh, x.shape[-1])].contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        return torch.cat(list(all_gather(g.contiguous(), ctx.mesh)), dim=-1), None
-
-
-class _GatherBlocks(torch.autograd.Function):
-    """Each rank's (..., L / M) block -> the whole (..., L) on every rank;
-    backward: this rank's block of the (replicated) gradient."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return torch.cat(list(all_gather(x.contiguous(), mesh)), dim=-1)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g[..., _block(ctx.mesh, g.shape[-1])].contiguous(), None
-
-
-class _Replicated(torch.autograd.Function):
-    """The identity on a replicated parameter; backward: the sum over ranks."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g.contiguous(), ctx.mesh), None
-
-
 class _GatherAggregates(torch.autograd.Function):
-    """Each rank's aggregate -> every rank's, stacked (M, ...); backward: the
-    cotangents summed over ranks, this rank's row."""
+    """Each rank's aggregate -> those of every rank of its ``axis`` row,
+    stacked (M, ...); backward: the cotangents summed over the row, this
+    rank's row."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return all_gather(x.contiguous(), mesh)
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return all_gather(x.contiguous(), mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.contiguous(), ctx.mesh)[ctx.mesh.axis_index("seq")], None
+        mesh, axis = ctx.args
+        return all_reduce(g.contiguous(), mesh, axis)[mesh.axis_index(axis)], None, None
 
 
 def _fold_prefix(a_all, h_all, idx, ndev, reverse):
@@ -176,25 +141,27 @@ def _blocks(cdt, C, A, h):
 
 
 def selective_scan_seq_sharded(u, delta, A, B, C, D=None, delta_bias=None,
-                               delta_softplus=False, *, mesh: Mesh, out_dtype=torch.float32,
-                               backend="auto", reverse=False):
-    """Selective scan with L sharded over ``mesh``'s ``seq`` axis.
+                               delta_softplus=False, *, mesh: Mesh, axis: str = "seq",
+                               out_dtype=torch.float32, backend="auto", reverse=False):
+    """Selective scan with L sharded over ``mesh``'s ``axis``.
 
     Shapes as in :mod:`focalnet_tpu_torch.ops.scan_ref`, whole on every rank
-    (``L`` a multiple of the axis size); returns the whole ``y`` (batch, dim,
-    L) in ``out_dtype`` on every rank.  ``reverse`` scans right to left: the
-    prefix folds the ranks to the right.  JAX's ``batch_axis`` (the batch
-    sharded too, dp x sp) is not ported."""
+    of this rank's ``axis`` row (``L`` a multiple of the axis size); returns
+    the whole ``y`` (batch, dim, L) in ``out_dtype`` on every rank.
+    ``reverse`` scans right to left: the prefix folds the ranks to the
+    right.  Every collective runs over this rank's row of ``axis``, so under
+    a ``(data, seq)`` mesh each data index scans its own rows of the batch
+    (JAX's ``batch_axis``)."""
     if B.dim() == 3:
         B = B[:, None]
     if C.dim() == 3:
         C = C[:, None]
-    ndev, idx = mesh.shape["seq"], mesh.axis_index("seq")
+    ndev, idx = mesh.shape[axis], mesh.axis_index(axis)
     L = u.shape[-1]
     if L % ndev:
-        raise ValueError(f"L={L} not divisible by seq={ndev}")
-    take = lambda t: _TakeBlock.apply(t, mesh)
-    rep = lambda t: None if t is None else _Replicated.apply(t, mesh)
+        raise ValueError(f"L={L} not divisible by {axis}={ndev}")
+    take = lambda t: TakeShard.apply(t, mesh, axis, -1, 1)
+    rep = lambda t: None if t is None else SumOverAxis.apply(t, mesh, axis)
     u_l, delta_l, B_l, C_l = take(u), take(delta), take(B), take(C)
     A_r, D_r, bias_r = rep(A), rep(D), rep(delta_bias)
 
@@ -210,8 +177,8 @@ def selective_scan_seq_sharded(u, delta, A, B, C, D=None, delta_bias=None,
         dt = F.softplus(dt)
     A32 = A_r.float()
     a_prod = torch.exp(A32[None] * dt.sum(-1)[..., None])
-    a_all = _GatherAggregates.apply(a_prod, mesh)  # (ndev, batch, dim, N)
-    h_all = _GatherAggregates.apply(h_last, mesh)
+    a_all = _GatherAggregates.apply(a_prod, mesh, axis)  # (ndev, batch, dim, N)
+    h_all = _GatherAggregates.apply(h_last, mesh, axis)
     h_prefix = _fold_prefix(a_all, h_all, idx, ndev, reverse)
     y_local = y_local + _PrefixCorrection.apply(dt, C_l, A32, h_prefix, reverse)
-    return _GatherBlocks.apply(y_local, mesh).to(out_dtype)
+    return GatherShards.apply(y_local, mesh, axis, -1, 1).to(out_dtype)

@@ -1,5 +1,5 @@
 """Training loop (counterpart of ``focalnet_tpu/train/trainer.py``), on one
-card, or on every rank of a sequence-parallel mesh.
+card, or on every rank of a process mesh.
 
 The reference recipe: multiscale L1 + 0.1 FFT loss, ``clip_grad_norm_(0.001)``
 before every step of Adam (lr 1e-4, betas 0.9/0.999, eps 1e-8, no weight
@@ -15,14 +15,20 @@ step, so a resumed run draws the masks the uninterrupted one would have (the
 JAX loop folds the step index into its key).  Loss values stay on the device until a
 print boundary, so the host does not wait for the card every step.
 
-Under a ``(1, M)`` mesh every rank runs this loop on the same batches with
-the same masks and initial weights, its model's SS2D scans sharded over L
-(``models.ss2d``).  After the scans' collectives every rank holds the same
-gradients; :func:`sync_grads` averages them over the ranks all the same,
-so that the ranks' Adam steps stay equal to the bit where two ranks' own
-layers round differently.  Validation runs the mesh-free model
-(``mesh_free``, the JAX trainer's ``eval_model``) on every rank.  Only rank
-0 writes the logs and the checkpoints.
+Under a mesh (``parallel.Mesh``) every rank runs this loop on the same
+batches of the one-process loader with the same initial weights, and takes
+its rows of each: those of its ``data`` index, the rank's share of each
+micro-batch as the JAX trainer shards them (:func:`batch_rows`); the ranks
+of one ``seq`` or ``model`` row take the same rows and shard their model's
+SS2D scans over L or over the channels (``models.ss2d``).  DropPath and
+Dropout draw the whole batch's masks and keep the rank's rows, so the
+masks are those of the one-process run.  :func:`sync_grads` averages the
+gradients and the loss over the ranks before each Adam step, so that every
+rank takes the same step, to the bit.  Validation runs the mesh-free model
+(``mesh_free``, the JAX trainer's ``eval_model``), the ranks splitting the
+images (``evaluation.validate``).  Only rank 0 prints, writes the logs and
+the checkpoints, and prints ``Mesh: {...} over N devices`` as the JAX
+trainer does.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from focalnet_tpu_torch.data.reside import TrainLoader
 from focalnet_tpu_torch.evaluation.evaluator import validate
 from focalnet_tpu_torch.models.mimounet import mesh_free
 from focalnet_tpu_torch.models.ss2d import set_dropout_generator
+from focalnet_tpu_torch.parallel.mesh import local_rows
 from focalnet_tpu_torch.train.checkpoint import CheckpointManager, restore
 from focalnet_tpu_torch.train.losses import multiscale_loss
 from focalnet_tpu_torch.train.schedule import warmup_cosine_epoch_lr
@@ -61,15 +68,38 @@ def optimizer_step(model, optimizer, grad_clip: float = 0.001) -> None:
     optimizer.step()
 
 
-def sync_grads(model, mesh) -> None:
-    """Average every gradient of ``model`` over the ranks of ``mesh`` (one
-    flat all-reduce)."""
+def sync_grads(model, mesh, extra: torch.Tensor) -> torch.Tensor:
+    """Average every gradient of ``model``, and the fp32 vector ``extra``,
+    over the ranks of ``mesh`` (one flat all-reduce); returns ``extra``'s
+    average."""
     from focalnet_tpu_torch.parallel.mesh import all_reduce
 
     grads = [p.grad for p in model.parameters() if p.grad is not None]
-    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh) / mesh.size
-    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads] + [extra]), mesh) / mesh.size
+    parts = flat.split([g.numel() for g in grads] + [extra.numel()])
+    for g, v in zip(grads, parts):
         g.copy_(v.view_as(g))
+    return parts[-1]
+
+
+def batch_rows(batch_size: int, grad_accum: int, mesh):
+    """This rank's rows of every batch of ``batch_size`` (an index array; None
+    for all of them): its ``data`` index's share of each of the
+    ``grad_accum`` micro-batches, in order, as the JAX trainer shards them,
+    so that the rank's own micro-batches are its shares of the one-process
+    run's.  Raises where the micro-batch does not split over the data axis:
+    the JAX trainer reshards such micro-batches, the port does not."""
+    n = mesh.shape.get("data", 1) if mesh is not None else 1
+    if n == 1:
+        return None
+    if batch_size % n or (batch_size // n) % grad_accum:
+        raise ValueError(
+            f"batch_size {batch_size} over a data axis of {n} with grad_accum {grad_accum}: "
+            "each rank's rows must split into grad_accum equal micro-batches (the port "
+            "does not reshard micro-batches as the JAX trainer does)")
+    mb = batch_size // grad_accum
+    return np.concatenate([np.arange(j * mb, (j + 1) * mb)[local_rows(mb, mesh)]
+                           for j in range(grad_accum)])
 
 
 def make_train_step(model, optimizer, fft_weight: float = 0.1,
@@ -77,9 +107,10 @@ def make_train_step(model, optimizer, fft_weight: float = 0.1,
     """One step: loss, gradients, clip, Adam.  ``grad_accum > 1`` splits the
     batch into that many equal micro-batches and averages their gradients
     before the one update (the loss is a per-sample mean, so this is the
-    full-batch gradient up to rounding).  Under a ``mesh`` the gradients are
-    averaged over its ranks (:func:`sync_grads`) before the update.  Returns
-    the loss, content and fft means as 0-d tensors on the device."""
+    full-batch gradient up to rounding).  Under a ``mesh`` the gradients and
+    the three means are averaged over its ranks (:func:`sync_grads`) before
+    the update.  Returns the loss, content and fft means as 0-d tensors on
+    the device."""
 
     def train_step(hazy, gt):
         if hazy.shape[0] % grad_accum:
@@ -92,7 +123,7 @@ def make_train_step(model, optimizer, fft_weight: float = 0.1,
             (total / grad_accum).backward()
             sums += torch.stack([total, content, fft]).detach()
         if mesh is not None:
-            sync_grads(model, mesh)
+            sums = sync_grads(model, mesh, sums)
         optimizer_step(model, optimizer, grad_clip)
         loss, content, fft = sums / grad_accum
         return {"loss": loss, "content": content, "fft": fft}
@@ -109,8 +140,9 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
           log_file: Optional[str] = None, mesh=None):
     """Train ``model`` (a MIMOUNet on its device) by ``cfg``; ``resume`` is a
     rolling ``model.pkl`` to continue from.  ``mesh``: this rank's
-    :class:`..parallel.Mesh` when ``model``'s scans are sequence-parallel
-    (every rank calls this).  Returns (model, optimizer)."""
+    :class:`..parallel.Mesh` (every rank calls this; ``model``'s scans
+    sharded over its ``seq`` or ``model`` axis, if it has one).  Returns
+    (model, optimizer)."""
     device = next(model.parameters()).device
     lead = mesh is None or mesh.rank == 0
     if mesh is not None and lead and mesh.size > 1:
@@ -124,10 +156,13 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
         start_epoch = epoch + 1
 
     loader = TrainLoader(cfg.data_dir, cfg.batch_size, cfg.num_worker,
-                         crop=cfg.crop_size, seed=cfg.seed)
+                         crop=cfg.crop_size, seed=cfg.seed,
+                         rows=batch_rows(cfg.batch_size, cfg.grad_accum, mesh))
     max_iter = len(loader)
     generator = torch.Generator(device=device)
-    set_dropout_generator(model, generator)
+    data_shard = ((mesh.axis_index("data"), mesh.shape["data"])
+                  if mesh is not None and "data" in mesh.shape else (0, 1))
+    set_dropout_generator(model, generator, data_shard)
     model.train()
     train_step = make_train_step(model, optimizer, cfg.fft_loss_weight,
                                  cfg.grad_clip, cfg.grad_accum, mesh)
@@ -203,7 +238,7 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
 
             if epoch_idx % cfg.valid_freq == 0 or epoch_idx == 1:
                 with mesh_free(model):
-                    val = validate(model, cfg.data_dir, batch_size=cfg.valid_batch)
+                    val = validate(model, cfg.data_dir, batch_size=cfg.valid_batch, mesh=mesh)
                 log("%03d epoch \n Average PSNR %.2f dB" % (epoch_idx, val))
                 log_metric(epoch=epoch_idx, psnr=val)
                 if val >= best_psnr:

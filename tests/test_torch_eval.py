@@ -247,9 +247,9 @@ def test_trainer_validates_at_valid_batch(tmp_path, monkeypatch):
     train.log the log scraper reads back with the loss records."""
     calls = []
 
-    def spy(model, data_dir, factor=32, batch_size=1):
+    def spy(model, data_dir, factor=32, batch_size=1, mesh=None):
         calls.append(batch_size)
-        return validate(model, data_dir, factor, batch_size)
+        return validate(model, data_dir, factor, batch_size, mesh)
 
     monkeypatch.setattr(trainer_mod, "validate", spy)
     data, out = str(tmp_path / "data"), str(tmp_path / "w")

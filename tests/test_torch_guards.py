@@ -45,7 +45,7 @@ def test_port_imports_no_jax():
         "for m in ('main', 'train.trainer', 'train.checkpoint', 'data.reside',\n"
         "          'evaluation.evaluator', 'ops.scan_bwd_ref', 'ops.fma_passes',\n"
         "          'benchmarks.vpu_probe', 'utils.flops', 'utils.profiling',\n"
-        "          'parallel', 'parallel.mesh', 'parallel.seq_scan'):\n"
+        "          'parallel', 'parallel.mesh', 'parallel.seq_scan', 'parallel.tp_scan'):\n"
         "    assert 'focalnet_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
     )
@@ -276,6 +276,41 @@ def test_backward_kernel_matches_plain_on_card(reverse, in_dtype):
     assert torch.equal(got[7], dy)
     for g, w in zip(got[:7], want):
         assert g.dtype == w.dtype or g.dtype == in_dtype
+        scale = max(w.float().abs().max().item(), 1.0)
+        tol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_kernel_pair_with_accum_at_tp_shard_on_card(reverse, in_dtype):
+    """K1 with y_accum at two B/C groups, the channel-split scan's shard of a
+    stacked pair (2 x 96 channels, batch 4; L = 1024 for 16384), then K2
+    through autograd, one launch each: y and every gradient against the
+    plain scan and its plain adjoint."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x, dy = _scan_inputs("cuda", L=1024, dim=192, N=16, G=2, batch=4)
+    for k in ("u", "delta", "B", "C"):
+        x[k] = x[k].to(in_dtype)
+    leaves = {k: v.clone().requires_grad_() for k, v in x.items()}
+    yacc = torch.randn_like(dy).requires_grad_()
+    before = (selective_scan_cuda.launches, selective_scan_bwd_cuda.launches)
+    y = selective_scan(**leaves, delta_softplus=True, backend="cuda", reverse=reverse,
+                       y_accum=yacc)
+    got = torch.autograd.grad(y, [*leaves.values(), yacc], dy)
+    torch.cuda.synchronize()
+    assert (selective_scan_cuda.launches, selective_scan_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        y_want = selective_scan(**x, delta_softplus=True, backend="chunked", reverse=reverse,
+                                y_accum=yacc)
+    rtol, atol = (6e-4, 2e-3) if in_dtype == torch.float32 else (3e-2, 5e-2)
+    assert ((y - y_want).abs() <= atol + rtol * y_want.abs()).all()
+    want = selective_scan_bwd_ref(*x.values(), dy, True, reverse)
+    assert torch.equal(got[7], dy)
+    for g, w in zip(got[:7], want):
         scale = max(w.float().abs().max().item(), 1.0)
         tol = 1e-3 if in_dtype == torch.float32 else 2e-2  # bf16: du, ddelta rounded
         assert (g.float() - w.float()).abs().max().item() <= tol * scale

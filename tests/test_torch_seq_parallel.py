@@ -12,14 +12,18 @@ package and against the port on one rank.
   ranks;
 - ``--mode test --mesh_shape 1,2`` against one rank: the same printed PSNR
   and SSIM lines;
-- a ``data`` axis above 1, and a mesh under ``--mode infer`` or ``serve``,
-  raise.
+- the mesh commands the JAX CLI runs without a mesh run so here, in this
+  process (``test 2,1`` with JAX's note, ``test 4``, ``serve 1,2``), and
+  ``train 2,2`` and ``infer 1,2`` go to ranks of those shapes (their results
+  are checked in ``tests/test_torch_data_parallel.py``'s world).
 """
 
 import contextlib
 import io
 import os
 import re
+
+import focalnet_tpu_torch.parallel.mesh as mesh_mod
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +33,7 @@ import torch
 from jax.sharding import Mesh as JaxMesh
 
 from focalnet_tpu.parallel import selective_scan_seq_sharded as jax_seq_sharded
+from focalnet_tpu_torch.data.png import read_png, write_png
 from focalnet_tpu_torch.data.reside import make_synthetic_dataset
 from focalnet_tpu_torch.main import main
 from focalnet_tpu_torch.models import build_net
@@ -73,12 +78,19 @@ def _train_case():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """The 2-rank world's results, with the single-rank test run's printout."""
+def sp_inputs(tmp_path_factory):
+    """A directory, the tiny dataset in it, and a tiny checkpoint."""
     tmp = tmp_path_factory.mktemp("sp")
     data = make_synthetic_dataset(str(tmp / "data"), n_train=2, n_test=2, hw=(46, 62), seed=0)
     ckpt = str(tmp / "tiny.pkl")
     save_checkpoint(ckpt, build_net("1mlp_g2", device="cpu", **ranks.TINY).state_dict())
+    return tmp, data, ckpt
+
+
+@pytest.fixture(scope="module")
+def world(sp_inputs):
+    """The 2-rank world's results, with the single-rank test run's printout."""
+    tmp, data, ckpt = sp_inputs
     argv = ["--mode", "test", "--data_dir", data, "--test_model", ckpt, *TINY_ARGS]
     results = spawn(ranks.run_cases, (1, 2), "cpu", timeout_s=240, args=(
         _scan_case(), _ss2d_case(), _train_case(),
@@ -176,10 +188,54 @@ def test_sp_test_cli_matches_single_rank(world):
         assert report["peak_mem_gb"] is None
 
 
+def _no_spawn(*args, **kwargs):
+    raise AssertionError("spawned ranks for a command that JAX runs without a mesh")
+
+
+def _serve(tmp, ckpt, argv, name):
+    """One request through ``--mode serve``: its answer line and image."""
+    out, answer = io.StringIO(), str(tmp / f"{name}.png")
+    main(["--mode", "serve", "--test_model", ckpt, "--model_save_dir", str(tmp / name),
+          "--result_dir", str(tmp / name), *TINY_ARGS, *argv],
+         inp=io.StringIO(f"{tmp / 'req.png'}\t{answer}\n"), out=out)
+    return out.getvalue().splitlines(), read_png(answer)
+
+
 @pytest.mark.parametrize("mode,shape", [
     ("test", "2,1"), ("train", "2,2"), ("test", "4"), ("infer", "1,2"), ("serve", "1,2"),
 ])
-def test_unported_meshes_raise(tmp_path, mode, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        main(["--mode", mode, "--mesh_shape", shape, "--model_save_dir", str(tmp_path),
-              "--result_dir", str(tmp_path), *TINY_ARGS])
+def test_jax_mesh_commands_run(world, sp_inputs, monkeypatch, mode, shape):
+    """Each mesh command runs as the JAX CLI runs it.  ``test 2,1`` prints
+    JAX's note and then the no-mesh run's lines, ``test 4`` those lines
+    alone, and ``serve 1,2`` answers as the mesh-free server: all three in
+    this process, spawning no rank.  ``train 2,2`` and ``infer 1,2`` go to
+    ranks of those shapes."""
+    tmp, data, ckpt = sp_inputs
+    if mode in ("train", "infer"):
+        shapes = []
+        monkeypatch.setattr(mesh_mod, "spawn",
+                            lambda fn, shape, *a, **k: shapes.append(tuple(shape)) or ["ran"])
+        argv = ["--mode", mode, "--mesh_shape", shape, "--data_dir", data, "--input", data,
+                "--test_model", ckpt, "--model_save_dir", str(tmp / f"{mode}_cfg"), *TINY_ARGS]
+        assert main(argv) == ["ran"]
+        assert shapes == [tuple(int(n) for n in shape.split(","))]
+        return
+    monkeypatch.setattr(mesh_mod, "spawn", _no_spawn)
+    if mode == "serve":
+        rng = np.random.default_rng(8)
+        write_png(str(tmp / "req.png"), rng.integers(0, 256, (40, 50, 3), np.uint8))
+        lines, img = _serve(tmp, ckpt, ["--mesh_shape", shape], "serve_mesh")
+        want_lines, want = _serve(tmp, ckpt, [], "serve_one")
+        assert [ln.split("\t")[0] for ln in lines] == [ln.split("\t")[0] for ln in want_lines]
+        np.testing.assert_array_equal(img, want)
+        return
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        main(["--mode", "test", "--mesh_shape", shape, "--data_dir", data, "--test_model", ckpt,
+              "--model_save_dir", str(tmp / "test_cfg"), "--result_dir", str(tmp / "test_img"),
+              *TINY_ARGS])
+    text = printed.getvalue()
+    note = ('note: --mode test is batch-1; ignoring the dp axis of --mesh_shape '
+            '(use "1,M" for sequence-parallel eval)')
+    assert (text.splitlines()[0] == note) == (shape == "2,1")
+    assert _metric_lines(text) == _metric_lines(world[1])

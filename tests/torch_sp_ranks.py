@@ -1,6 +1,9 @@
-"""What each rank of ``tests/test_torch_seq_parallel.py``'s 2-rank gloo world
-runs (a module of its own, importable by name in the spawned ranks, which
-import no JAX).  Every case returns numpy arrays and numbers."""
+"""What each rank of the port's gloo worlds on the CPU runs: the 2-rank
+world of ``tests/test_torch_seq_parallel.py``, the 4-rank one of
+``tests/test_torch_data_parallel.py`` and the 2-rank one of
+``tests/test_torch_tensor_parallel.py`` (a module of its own, importable by
+name in the spawned ranks, which import no JAX).  Every case returns numpy
+arrays and numbers."""
 
 import contextlib
 import io
@@ -11,7 +14,8 @@ import torch
 from focalnet_tpu_torch.main import main
 from focalnet_tpu_torch.models import build_net
 from focalnet_tpu_torch.models.ss2d import SS2D, set_dropout_generator
-from focalnet_tpu_torch.parallel import selective_scan_seq_sharded
+from focalnet_tpu_torch.parallel import local_rows, make_mesh, selective_scan_seq_sharded
+from focalnet_tpu_torch.parallel.tp_scan import selective_scan_tp
 from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 
 TINY = dict(vssg_dim=16, ssm_d_state=4)
@@ -35,13 +39,17 @@ def ss2d_out_grads(ss2d, x):
 
 
 def train_step(model, hazy, gt, mesh=None):
-    """One train step of ``model`` (loss, clip, Adam) with the step-seeded
-    mask generator: the loss, the (clipped) gradients and the parameters
-    after the step."""
+    """One train step of ``model`` (loss, clip, Adam) on this rank's rows of
+    the batch, with the step-seeded mask generator drawing the whole batch's
+    masks: the loss, the (clipped) gradients and the parameters after the
+    step."""
     model.train()
-    set_dropout_generator(model, torch.Generator().manual_seed(7))
+    rows = local_rows(len(hazy), mesh)
+    shard = ((mesh.axis_index("data"), mesh.shape["data"])
+             if mesh is not None and "data" in mesh.shape else (0, 1))
+    set_dropout_generator(model, torch.Generator().manual_seed(7), shard)
     step = make_train_step(model, make_optimizer(model), mesh=mesh)
-    out = step(torch.tensor(hazy), torch.tensor(gt))
+    out = step(torch.tensor(hazy[rows]), torch.tensor(gt[rows]))
     return (float(out["loss"]), {k: p.grad.numpy().copy() for k, p in model.named_parameters()},
             {k: p.detach().numpy().copy() for k, p in model.named_parameters()})
 
@@ -75,4 +83,54 @@ def run_cases(mesh, scan_case, ss2d_case, train_case, test_argv):
 
     with contextlib.redirect_stdout(io.StringIO()):
         out["test_cli"] = main(test_argv)
+    return out
+
+
+def _cli(argv):
+    """``main(argv)`` on the running world, its printout kept by the report."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def run_dp_cases(mesh, train_case, clis):
+    """The 4-rank world of the data-parallel tests: one train step of the
+    tiny model (DropPath on) on the ``(4,)`` data-parallel mesh and on a
+    ``(2, 2)`` dp x sp mesh, then each CLI command of ``clis`` on the
+    running world (those of two ranks on ranks 0 and 1; None on the others)."""
+    seed, hazy, gt = train_case
+    out = {}
+    model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
+                      **TINY)
+    out["dp"] = train_step(model, hazy, gt, mesh)
+    dpsp = make_mesh((2, 2), mesh.device)
+    model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
+                      seq_mesh=dpsp, seq_axis="seq", data_axis="data", **TINY)
+    out["dpsp"] = train_step(model, hazy, gt, dpsp)
+    out["cli"] = {name: _cli(argv) for name, argv in clis}
+    return out
+
+
+def run_tp_cases(mesh, scan_cases, ss2d_case, train_case):
+    """The 2-rank ``(data, model) = (1, 2)`` world of the tensor-parallel
+    tests: the channel-split scan of each of ``scan_cases`` (y and the
+    gradients of ``sum(y * dy)``), the channel-split SS2D, and one train step
+    of the tiny model with channel-split scans."""
+    out = {}
+    for name, (arrays, dy, reverse, accum) in scan_cases.items():
+        names = SCAN_NAMES + (("y_accum",) if accum else ())
+        leaves = [torch.tensor(arrays[k], requires_grad=True) for k in names]
+        y = selective_scan_tp(*leaves[:7], True, mesh=mesh, reverse=reverse,
+                              y_accum=leaves[7] if accum else None)
+        (y * torch.tensor(dy)).sum().backward()
+        out[name] = y.detach().numpy(), [t.grad.numpy() for t in leaves]
+
+    ss2d_kw, state, x = ss2d_case
+    ss2d = SS2D(**ss2d_kw, seq_mesh=mesh, tp_axis="model")
+    ss2d.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    out["ss2d"] = ss2d_out_grads(ss2d, x)
+
+    seed, hazy, gt = train_case
+    model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
+                      seq_mesh=mesh, tp_axis="model", data_axis="data", **TINY)
+    out["train"] = train_step(model, hazy, gt, mesh)
     return out
