@@ -56,7 +56,18 @@ runs the sequence-parallel phases alone on every card of the machine (one
 card per rank over NCCL where there are enough; ``--mesh_shape 1,4`` too
 with four), and with several cards data parallelism over NCCL at ``2`` and
 ``4`` ranks, batch 4 and 16, against one card, and ``--mode train`` with the
-default mesh.
+default mesh.  The modules no preset uses: the full-width ``1mlp_g2`` at
+four SS2D variants that together take every flag (``variants``: force_fp32
+under the bf16 recipe, so K1 and K2 read fp32 operands in a bf16 model; the
+softmax, dwconv3 and no out-norm; noz, nozact; v1 and v2 init; no
+depthwise conv), each 256x256 forward and batch-4 step on the kernels
+against the plain scans; ``MambaSS2D`` at the model's width on 128x128
+(``mamba``: its Mamba1D scans 384 channels in one group), forward and
+step, and K1 and K2 alone at that shape, held and timed; and ``grad_accum``
+under data parallelism (``dp_accum``: ``--mesh_shape 4 --batch_size 4
+--grad_accum 2`` on four ranks, two of them without rows, and batch 2 over
+two ranks, against one process over the same micro-batches, and that
+command through the CLI for 3 steps).
 Each phase prints one JSON line; any failed check
 exits non-zero before the last line, which is ``{"ok": true,
 "device": {...}}``.
@@ -158,6 +169,12 @@ DPSP_SHAPE = TP_SHAPE = (2, 2)
 DP_MASK_SEED = 77
 DP_LOSS_RTOL = 1e-4
 DP_NCCL_BATCHES = (TRAIN_BATCH, 16)  # --sp_only on several cards: 1 and 4 images a card
+# grad_accum under data parallelism: the step over DP_ACCUM micro-batches of
+# batch / DP_ACCUM rows, resharded over the data axis (four ranks at batch
+# 4: micro-batches of 2 rows, ranks 2 and 3 with none; two ranks at batch 2:
+# micro-batches of one row, rank 1 with none), against one process over the
+# same micro-batches
+DP_ACCUM = 2
 # the channel-split scan: each SS2D's two stacked-pair calls, with their
 # 2 x 192 channels split over the model axis; a sub-group shard holds half
 # of each group's channels (2 x 96 in two groups), and the whole-group shard
@@ -165,6 +182,22 @@ DP_NCCL_BATCHES = (TRAIN_BATCH, 16)  # --sp_only on several cards: 1 and 4 image
 TP_DIM, TP_SUB_GROUPS = 192, 2
 TP_LAUNCHES_PER_FORWARD = 24   # 12 SS2D x 2 stacked-pair calls, on each rank
 TP_STEPS = 3
+# the variants slice: configurations of the full-width 1mlp_g2 that together
+# take every SS2D flag (force_fp32 under the bf16 recipe; softmax, dwconv3
+# and no out-norm; noz, nozact; v1 and v2 init; no depthwise conv), and
+# MambaSS2D at the model's width on a 128x128 map (its Mamba1D pair scans
+# 2 x 192 = 384 channels in one group, L = 16384)
+VARIANTS = (
+    ("v2sigmoid_bf16", dict(forward_type="v2sigmoid", **RECIPE)),
+    ("v4softmaxnoz", dict(forward_type="v4softmaxnoz", ssm_conv=1, ssm_init="v1")),
+    ("v4dwconv3nozact", dict(forward_type="v4dwconv3nozact", ssm_init="v2")),
+    ("v4none", dict(forward_type="v4none")),
+)
+MAMBA_DIM, MAMBA_HW = 96, 128
+MAMBA_SCAN_DIM = 2 * 2 * MAMBA_DIM  # ssm_ratio 2, then Mamba1D's expand 2
+# MambaSS2D, kernel vs plain: max |got - want| <= MAMBA_RTOL max |want| for
+# the output and each parameter's gradient (MODEL_GRAD_TOL's relative part)
+MAMBA_RTOL = 1e-3
 
 
 def emit(**fields):
@@ -698,7 +731,7 @@ def smooth_loss(preds, label):
 
 def phase_grad(build_net, counters, card, preset="1mlp_g2", name="grad_256",
                profile="profile_train_step", tol=MODEL_GRAD_TOL, scaled=False, plain_reps=3,
-               **overrides):
+               timed=True, **overrides):
     """One backward of the full-width ``preset`` (with config ``overrides``) at
     batch 4, 256x256, on the kernels vs on the plain scans (per-parameter
     gradients of :func:`smooth_loss`, max |got - want| <= rel max |want| +
@@ -706,7 +739,7 @@ def phase_grad(build_net, counters, card, preset="1mlp_g2", name="grad_256",
     largest |gradient| of the plain run when ``scaled``; launch counts),
     then ms per train step (loss, backward, clip, Adam) of each (the plain
     one ``plain_reps`` times; not at 0), and a profile of the kernels' train
-    step.  Returns the kernels' ms per step."""
+    step (neither without ``timed``).  Returns the kernels' ms per step."""
     from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 
     gen = torch.Generator().manual_seed(4321)
@@ -740,7 +773,7 @@ def phase_grad(build_net, counters, card, preset="1mlp_g2", name="grad_256",
         if err / lim > worst:
             worst, worst_key = err / lim, k
     steps = [make_train_step(m, make_optimizer(m)) for m in models]
-    ms = time_ms(lambda: steps[0](x, gt), reps=10, warmup=3)
+    ms = time_ms(lambda: steps[0](x, gt), reps=10, warmup=3) if timed else None
     plain_ms = time_ms(lambda: steps[1](x, gt), reps=plain_reps, warmup=1) if plain_reps else None
     emit(phase=name, preset=preset, overrides=overrides, batch=TRAIN_BATCH,
          params=len(grads[0]), max_abs_err=max_abs, max_err_over_limit=worst,
@@ -750,6 +783,8 @@ def phase_grad(build_net, counters, card, preset="1mlp_g2", name="grad_256",
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del models, grads, steps
     torch.cuda.empty_cache()
+    if not timed:
+        return ms
     model = build_net(preset, device="cuda", generator=torch.Generator().manual_seed(1234),
                       **overrides).train()
     from focalnet_tpu_torch.models import set_dropout_generator
@@ -1313,6 +1348,151 @@ def phase_tf32(build_net, card):
 
 
 # ---------------------------------------------------------------------------
+# the variants slice: the SS2D variants and MambaSS2D at full width
+
+
+def phase_variants(build_net, counters, card, smi, rng):
+    """The full-width ``1mlp_g2`` at each configuration of VARIANTS (every
+    out-norm, noz and nozact, force_fp32 under the bf16 recipe, v1 and v2
+    init, no depthwise conv), through ``build_net``: the 256x256 batch-1
+    forward on the kernels vs the plain scan (MODEL_TOL, BF16_MODEL_TOL in
+    bf16; 48 K1 launches; ms by events, device ms by kind), then the batch-4
+    step's gradients, kernel vs plain (MODEL_GRAD_TOL, BF16_GRAD_TOL scaled
+    in bf16; 48 K1 and 48 K2 launches; the step is not timed).  Returns {name: K1 launches of the
+    forward}."""
+    launches = {}
+    for name, kw in VARIANTS:
+        bf16 = kw.get("compute_dtype") == "bfloat16"
+        model = build_net("1mlp_g2", device="cuda",
+                          generator=torch.Generator().manual_seed(1234), **kw)
+        plain = build_net("1mlp_g2", device="cuda", scan_backend="chunked", **kw)
+        plain.load_state_dict(model.state_dict(), strict=True)
+        launches[name] = phase_forward(
+            f"variant_forward_{name}", f"profile_variant_{name}", model, plain, (256, 256),
+            rng, counters[0], card, smi, reps=10, plain_reps=2,
+            tol=BF16_MODEL_TOL if bf16 else MODEL_TOL)
+        del model, plain
+        torch.cuda.empty_cache()
+        phase_grad(build_net, counters, card, name=f"variant_grad_{name}", plain_reps=0,
+                   timed=False, tol=BF16_GRAD_TOL if bf16 else MODEL_GRAD_TOL, scaled=bf16,
+                   **kw)
+    return launches
+
+
+def phase_kernel_mamba(scan, fwd, bwd, bwd_ref, clock_mhz, sms):
+    """K1 and K2 alone at MambaSS2D's scan (the model's width: two Mamba1D of
+    192, each scanning D = 384 channels in one B/C group over L = 128 x 128 =
+    16384), B = 1 (a forward) and 4 (a step), forward direction: against
+    their plain versions (TOLS, GRAD_TOLS through the autograd Function) and
+    timed as ``kernel_time`` and ``kernel_bwd_time`` time them, beside the
+    plain versions and the bound.  Returns {(kernel, B): (ms, plain ms,
+    bound ms, bound by, max abs err)}."""
+    timing = {}
+    L, dim = MAMBA_HW * MAMBA_HW, MAMBA_SCAN_DIM
+    for batch in (1, TRAIN_BATCH):
+        x, _ = scan_inputs(L, dim=dim, batch=batch)
+        with torch.inference_mode():
+            got = fwd(**x, delta_softplus=True)
+            want = scan(**x, backend="chunked", delta_softplus=True)
+            torch.cuda.synchronize()
+            err, ok = max_err(got, want, *TOLS[torch.float32])
+            if not ok:
+                fail(f"K1 at D={dim} G=1 L={L} B={batch}: max abs err {err}")
+            del got, want
+            ms = [kernel_ms(lambda: fwd(**x, delta_softplus=True), "selective_scan_fwd")
+                  for _ in range(2)]
+            plain = time_ms(lambda: scan(**x, backend="chunked", delta_softplus=True),
+                            reps=5, warmup=1)
+        b, by = bound(L, clock_mhz, sms, dim=dim, batch=batch)
+        emit(phase="kernel_time", batch=batch, dim=dim, groups=1, L=L, reverse=False,
+             y_accum=False, chunk_states=False, ms=ms, plain_ms=plain, bound_ms=b,
+             bound_by=by, sfu_exp_ms=batch * sfu_ms(L, clock_mhz, sms, dim),
+             max_abs_err=err, note="MambaSS2D's scan (Mamba1D of d_inner 384)")
+        timing["fwd", batch] = (statistics.mean(ms), plain, b, by, err)
+        errs = bwd_vs_plain(scan, L, False, False, torch.float32, batch, dim, 1)
+        with torch.inference_mode():
+            x, dy = scan_inputs(L, dim=dim, seed=1, batch=batch)
+            _, hchk = fwd(**x, delta_softplus=True, chunk_states=True)
+            args = (*x.values(), dy, hchk, True, False)
+            ms = [kernel_ms(lambda: bwd(*args), "selective_scan_bwd") for _ in range(2)]
+            plain = time_ms(lambda: bwd_ref(*args[:8], True, False), reps=3, warmup=1)
+        b, by = bound_bwd(L, clock_mhz, sms, dim=dim, batch=batch)
+        emit(phase="kernel_bwd_time", batch=batch, dim=dim, groups=1, L=L, reverse=False,
+             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=errs,
+             sfu_exp_ms=batch * sfu_ms(L, clock_mhz, sms, dim),
+             note="MambaSS2D's scan (Mamba1D of d_inner 384)")
+        timing["bwd", batch] = (statistics.mean(ms), plain, b, by, max(errs.values()))
+        del x, dy, hchk, args
+        torch.cuda.empty_cache()
+    return timing
+
+
+def phase_mamba(counters, card):
+    """MambaSS2D at the model's width (``d_model`` 96: two Mamba1D of 192,
+    each scanning 384 channels in one B/C group over L = H W) on
+    (B, 128, 128, 96): the B = 1 forward and the gradients of a B = 4 step
+    (``sum(y * w)``), on the kernels vs the plain scan, each held relative
+    to its scale (max |got - want| <= MAMBA_RTOL max |want|: the init laws
+    make the outputs and gradients small); 2 K1 launches a forward, 2 K1
+    and 2 K2 a step; ms by events.  Returns the kernels' launches of the
+    forward and of the step."""
+    from focalnet_tpu_torch.models import MambaSS2D
+    from focalnet_tpu_torch.models.initializers import init_weights
+
+    gen = torch.Generator().manual_seed(4321)
+    xs = {b: torch.randn(b, MAMBA_HW, MAMBA_HW, MAMBA_DIM, generator=gen).cuda()
+          for b in (1, TRAIN_BATCH)}
+    w = torch.randn(TRAIN_BATCH, MAMBA_HW, MAMBA_HW, MAMBA_DIM, generator=gen).cuda()
+    models = {}
+    for backend in ("cuda", "chunked"):
+        m = MambaSS2D(MAMBA_DIM, scan_backend=backend)
+        init_weights(m, torch.Generator().manual_seed(1234))
+        models[backend] = m.cuda().train()
+    outs, grads, launches = {}, {}, {}
+    for backend, m in models.items():
+        for c in counters:
+            c.launches = 0
+        with torch.inference_mode():
+            outs[backend] = m(xs[1])
+        torch.cuda.synchronize()
+        launches[backend, "forward"] = [c.launches for c in counters]
+        for c in counters:
+            c.launches = 0
+        (m(xs[TRAIN_BATCH]) * w).sum().backward()
+        torch.cuda.synchronize()
+        launches[backend, "step"] = [c.launches for c in counters]
+        grads[backend] = {k: p.grad for k, p in m.named_parameters()}
+    scale = float(outs["chunked"].abs().max())
+    fwd_err = float((outs["cuda"] - outs["chunked"]).abs().max())
+    if not (fwd_err <= MAMBA_RTOL * scale and bool(torch.isfinite(outs["cuda"]).all())):
+        fail(f"mamba: MambaSS2D forward, kernel vs plain max abs err {fwd_err} "
+             f"(largest output {scale})")
+    worst, worst_key = 0.0, None
+    for k, g in grads["chunked"].items():
+        err = float((grads["cuda"][k] - g).abs().max())
+        lim = MAMBA_RTOL * float(g.abs().max())
+        if not (err <= lim and bool(torch.isfinite(grads["cuda"][k]).all())):
+            fail(f"mamba: gradient of {k}: kernel vs plain max abs err {err} > {lim}")
+        if err / lim > worst:
+            worst, worst_key = err / lim, k
+    expect = {("cuda", "forward"): [2, 0], ("cuda", "step"): [2, 2],
+              ("chunked", "forward"): [0, 0], ("chunked", "step"): [0, 0]}
+    if launches != expect:
+        fail(f"mamba: launches (K1, K2) {launches}, expected {expect}")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: models["cuda"](xs[1]), reps=10)
+        plain_ms = time_ms(lambda: models["chunked"](xs[1]), reps=3, warmup=1)
+    emit(phase="mamba", d_model=MAMBA_DIM, shape=[1, MAMBA_HW, MAMBA_HW, MAMBA_DIM],
+         step_batch=TRAIN_BATCH, forward_max_abs_err=fwd_err, forward_scale=scale,
+         rtol=MAMBA_RTOL, grad_max_err_over_limit=worst, worst_param=worst_key,
+         params=len(grads["cuda"]), launches={f"{b}_{p}": v for (b, p), v in launches.items()},
+         forward_ms=fwd_ms, plain_forward_ms=plain_ms, card=card)
+    del models, outs, grads, xs, w
+    torch.cuda.empty_cache()
+    return launches["cuda", "forward"], launches["cuda", "step"]
+
+
+# ---------------------------------------------------------------------------
 # the sequence-parallel slice: the segment API of K1 and K2, and
 # --mesh_shape 1,2 of --mode test and --mode train
 
@@ -1815,32 +1995,40 @@ def _time_tp(scan, fwd, bwd, bwd_ref, x, dy, yacc, shard, batch, groups, L, cloc
             (shard, "bwd", L): (ms_bwd, None, plain_bwd, b_bwd, by_bwd)}
 
 
-def _first_step(model, mesh, x, gt):
-    """One forward and backward of :func:`smooth_loss` on this rank's rows of
-    ``x``, ``gt`` (host arrays) with the whole batch's DropPath masks
+def _first_step(model, mesh, x, gt, grad_accum=1):
+    """One forward and backward of :func:`smooth_loss` over ``grad_accum``
+    micro-batches of ``x``, ``gt`` (host arrays), on this rank's rows of each
+    (maybe none), with each micro-batch's DropPath masks drawn whole
     (generator seeded with DP_MASK_SEED), the gradients and the loss then
-    averaged over the mesh as the train step averages them; the loss, the
-    K1 and K2 launches (all, and those of the segment API), the gradients
-    on the host and the peak memory."""
+    averaged over the mesh as the train step averages them
+    (``train.trainer.accumulate``, ``sync_grads``); the loss, the K1 and K2
+    launches (all, and those of the segment API), the gradients on the host
+    and the peak memory."""
     from focalnet_tpu_torch.models import set_dropout_generator
     from focalnet_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_bwd_cuda,
         selective_scan_cuda,
     )
-    from focalnet_tpu_torch.parallel import local_rows
-    from focalnet_tpu_torch.train.trainer import sync_grads
+    from focalnet_tpu_torch.train.trainer import (
+        accumulate,
+        batch_rows,
+        micro_batch_rows,
+        sync_grads,
+    )
 
     counters = (selective_scan_cuda, selective_scan_bwd_cuda)
-    rows = local_rows(len(x), mesh)
+    batch = len(x)
+    rows = batch_rows(batch, grad_accum, mesh)
+    rows = slice(None) if rows is None else rows
     xs, gts = (torch.from_numpy(a[rows]).to(mesh.device) for a in (x, gt))
     set_dropout_generator(model, torch.Generator(device=mesh.device).manual_seed(DP_MASK_SEED),
-                          (mesh.axis_index("data"), mesh.shape["data"]))
+                          (micro_batch_rows(batch, grad_accum, mesh).start, batch // grad_accum))
     for c in counters:
         c.launches = c.segment_launches = 0
     torch.cuda.reset_peak_memory_stats()
-    loss = smooth_loss(model(xs), gts)
-    loss.backward()
-    loss = sync_grads(model, mesh, loss.detach().reshape(1))
+    sums = accumulate(model, xs, gts, lambda p, g: (smooth_loss(p, g),), grad_accum, mesh,
+                      batch, n_terms=1)
+    loss = sync_grads(model, mesh, sums) / grad_accum
     torch.cuda.synchronize()
     return dict(loss=float(loss), launches=[[c.launches, c.segment_launches] for c in counters],
                 grads={k: p.grad.cpu().numpy() for k, p in model.named_parameters()},
@@ -1867,10 +2055,12 @@ def _cli_reports(cli_main, argvs):
     return out
 
 
-def _dp_rank(mesh, x, gt, argvs):
+def _dp_rank(mesh, x, gt, argvs, accum_case):
     """A rank of ``phase_dp``'s 2-rank world: the first step of the
     full-width ``1mlp_g2`` (seed 1234, DropPath on) data parallel at batch 4,
-    its train step's time, then the CLI commands on the running world."""
+    its train step's time, the first step at batch 2 over two micro-batches
+    of one row (``accum_case``: rank 1 holds none), then the CLI commands on
+    the running world."""
     from focalnet_tpu_torch.main import main as cli_main
     from focalnet_tpu_torch.models import build_net
 
@@ -1879,6 +2069,10 @@ def _dp_rank(mesh, x, gt, argvs):
     out, (xs, gts) = _first_step(model, mesh, x, gt)
     out.update(rank=mesh.rank, backend=mesh.backend, step_ms=_step_ms(model, mesh, xs, gts))
     del model, xs, gts
+    model = build_net("1mlp_g2", device=mesh.device,
+                      generator=torch.Generator().manual_seed(1234)).train()
+    out["accum"] = _first_step(model, mesh, *accum_case, grad_accum=DP_ACCUM)[0]
+    del model
     torch.cuda.empty_cache()
     out["cli"] = _cli_reports(cli_main, argvs)
     return out
@@ -1890,7 +2084,8 @@ def _dpsp_tp_rank(mesh, x, gt, argvs):
     step's time and the CLI commands on the running world; then on a (data,
     model) = (2, 2) mesh of the same ranks the first step with channel-split
     scans and 3 steps (their wall time), after which the parameters'
-    digest."""
+    digest; then data parallel over the four ranks, the first step over
+    DP_ACCUM micro-batches of 2 rows (ranks 2 and 3 hold none)."""
     import hashlib
 
     from focalnet_tpu_torch.main import main as cli_main
@@ -1922,6 +2117,13 @@ def _dpsp_tp_rank(mesh, x, gt, argvs):
         digest.update(k.encode())
         digest.update(v.detach().cpu().contiguous().numpy().tobytes())
     out["tp"]["param_sha256"] = digest.hexdigest()
+    del model, step, xs, gts
+    torch.cuda.empty_cache()
+
+    dp = make_mesh((math.prod(TP_SHAPE),), mesh.device)
+    model = build_net("1mlp_g2", device=mesh.device,
+                      generator=torch.Generator().manual_seed(1234)).train()
+    out["dp_accum"] = _first_step(model, dp, x, gt, grad_accum=DP_ACCUM)[0]
     return out
 
 
@@ -1953,12 +2155,13 @@ def _check_first_step(name, r, want_loss, want, expected_launches, card, ranks, 
              f"{expected_launches}; {len(r['grads'])} gradients")
 
 
-def _one_process_step(build_net, batch=TRAIN_BATCH):
+def _one_process_step(build_net, batch=TRAIN_BATCH, grad_accum=1):
     """The batch (host arrays) and the one-process reference of the mesh
     phases' first step: the loss and gradients of :func:`smooth_loss` of the
     full-width ``1mlp_g2`` (seed 1234, DropPath masks from DP_MASK_SEED) on
-    the whole batch."""
+    the whole batch, over ``grad_accum`` micro-batches."""
     from focalnet_tpu_torch.models import set_dropout_generator
+    from focalnet_tpu_torch.train.trainer import accumulate
 
     gen = torch.Generator().manual_seed(4321)
     x = torch.rand(batch, 256, 256, 3, generator=gen)
@@ -1966,9 +2169,9 @@ def _one_process_step(build_net, batch=TRAIN_BATCH):
     model = build_net("1mlp_g2", device="cuda",
                       generator=torch.Generator().manual_seed(1234)).train()
     set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(DP_MASK_SEED))
-    loss = smooth_loss(model(x.cuda()), gt.cuda())
-    loss.backward()
-    return (x.numpy(), gt.numpy(), float(loss.detach()),
+    sums = accumulate(model, x.cuda(), gt.cuda(), lambda p, g: (smooth_loss(p, g),),
+                      grad_accum, n_terms=1)
+    return (x.numpy(), gt.numpy(), float(sums[0] / grad_accum),
             {k: p.grad for k, p in model.named_parameters()})
 
 
@@ -1988,12 +2191,13 @@ def _train_argv(tmp, name, mesh_shape=None, extra=()):
 
 
 def _check_train_cli(name, mesh_shape, reports, tmp, card, steps=3, val_images=2,
-                     segment=False):
+                     segment=False, step_launches=None):
     """A ``--mode train`` run of 3 steps on a mesh: the ranks' parameter
     digests equal, the K1 and K2 launches of each rank (24 segment calls of
     each a step under a seq axis, 48 dense a step otherwise; 48 dense K1 a
     validated image, the images split over the ranks), finite losses in
-    rank 0's log and its ``Mesh:`` line."""
+    rank 0's log and its ``Mesh:`` line.  ``step_launches``: each rank's
+    dense K1 and K2 launches a step, where they differ from 48."""
     size = len(reports)
     per_step = SP_LAUNCHES_PER_FORWARD if segment else LAUNCHES_PER_FORWARD
     got, expected = [], []
@@ -2001,7 +2205,7 @@ def _check_train_cli(name, mesh_shape, reports, tmp, card, steps=3, val_images=2
         got.append([report["launches_fwd"], report["segment_launches_fwd"],
                     report["launches_bwd"], report["segment_launches_bwd"]])
         val = LAUNCHES_PER_FORWARD * len(range(r, val_images, size))
-        n = per_step * steps
+        n = (per_step if step_launches is None else step_launches[r]) * steps
         expected.append([n + val, n if segment else 0, n, n if segment else 0])
     digests = [rep["result"]["param_sha256"] for rep, _ in reports]
     with open(os.path.join(tmp, name, "train.metrics.jsonl")) as f:
@@ -2047,6 +2251,9 @@ def phase_dp(build_net, cli_main, tmp, card, infer_src, infer_sizes, infer_want)
       batch's DropPath masks) of the full-width ``1mlp_g2``: loss within
       DP_LOSS_RTOL and every gradient under GRAD_TOLS of the one-process
       step; 48 K1 and 48 K2 launches per rank; the step's time;
+    - ``dp_accum``: the first batch-2 step over DP_ACCUM micro-batches of
+      one row (rank 1 holds none) against one process over the same
+      micro-batches, as ``dp_grad``; 96 K1 and 96 K2 launches on rank 0;
     - ``dp_train_cli``: ``--mode train --mesh_shape 2`` under the bf16
       recipe, 3 steps: equal parameters on both ranks, launches, ``Mesh:``;
     - ``dp_infer_cli``: ``--mode infer`` at ``--mesh_shape 2`` and ``1,2`` on
@@ -2058,6 +2265,7 @@ def phase_dp(build_net, cli_main, tmp, card, infer_src, infer_sizes, infer_want)
     from focalnet_tpu_torch.parallel import spawn
 
     x, gt, want_loss, want = _one_process_step(build_net)
+    x2, gt2, want_loss2, want2 = _one_process_step(build_net, DP_RANKS, DP_ACCUM)
     infer = {shape: ["--mode", "infer", "--input", infer_src, "--test_model",
                      os.path.join(tmp, "model.pkl"), "--result_dir",
                      os.path.join(tmp, f"dp_infer_{shape}"), "--model_save_dir",
@@ -2067,11 +2275,18 @@ def phase_dp(build_net, cli_main, tmp, card, infer_src, infer_sizes, infer_want)
                                                                   "--ssm_out_dtype", "bfloat16"]))]
     argvs += [(f"infer_{s}", a) for s, a in infer.items()]
     with _stdout_fd_to(os.path.join(tmp, "dp.out")):
-        ranks = spawn(_dp_rank, (DP_RANKS,), "cuda", args=(x, gt, argvs), timeout_s=SP_TIMEOUT_S)
+        ranks = spawn(_dp_rank, (DP_RANKS,), "cuda", args=(x, gt, argvs, (x2, gt2)),
+                      timeout_s=SP_TIMEOUT_S)
     expected = [[LAUNCHES_PER_FORWARD, 0]] * 2
     for r in ranks:
         _check_first_step("dp_grad", r, want_loss, want, expected, card, DP_RANKS,
                           mesh_shape=DP_MESH, rank=r["rank"], backend=r["backend"])
+    for r in ranks:  # micro-batches of one row: rank 0 runs both, rank 1 none
+        n = DP_ACCUM * LAUNCHES_PER_FORWARD if r["rank"] == 0 else 0
+        _check_first_step("dp_accum", r["accum"], want_loss2, want2, [[n, 0]] * 2, card,
+                          DP_RANKS, mesh_shape=DP_MESH, batch=DP_RANKS, grad_accum=DP_ACCUM,
+                          rank=r["rank"], backend=r["backend"])
+    del want2
     _check_train_cli("dp_train", DP_MESH, [r["cli"]["dp_train"] for r in ranks], tmp, card)
     names = sorted(os.listdir(infer_want))
     for shape in infer:
@@ -2122,18 +2337,27 @@ def phase_dpsp_tp(build_net, cli_main, tmp, card):
     - ``tp_grad``: the same first step with every SS2D's scans split over
       the channels (``build_net(tp_axis="model")``); 24 K1 and 24 K2 launches
       per rank; then 3 steps, after which the ranks' parameter digests are
-      equal.
+      equal;
+    - ``dp_accum``: ``--mesh_shape 4 --batch_size 4 --grad_accum 2``, the
+      first step data parallel over the four ranks and DP_ACCUM
+      micro-batches of 2 rows (ranks 2 and 3 hold none) against one process
+      over the same micro-batches, as ``dp_grad`` (96 K1 and 96 K2 launches
+      on ranks 0 and 1, none on 2 and 3); then ``dp_accum_train_cli``, 3
+      steps of that command through the CLI, as ``dp_train_cli``.
 
     Returns rank 0's tp launches (K1, K2) of the first step and the tp
     step's ms."""
     from focalnet_tpu_torch.parallel import spawn
 
     x, gt, want_loss, want = _one_process_step(build_net)
-    argvs = [("dpsp_train", _train_argv(tmp, "dpsp_train", "2,2"))]
+    _, _, accum_loss, accum_want = _one_process_step(build_net, grad_accum=DP_ACCUM)
+    n = math.prod(DPSP_SHAPE)
+    argvs = [("dpsp_train", _train_argv(tmp, "dpsp_train", "2,2")),
+             ("dp_accum_train", _train_argv(tmp, "dp_accum_train", str(n),
+                                            ["--grad_accum", str(DP_ACCUM)]))]
     with _stdout_fd_to(os.path.join(tmp, "dpsp_tp.out")):
         ranks = spawn(_dpsp_tp_rank, DPSP_SHAPE, "cuda", args=(x, gt, argvs),
                       timeout_s=SP_TIMEOUT_S)
-    n = math.prod(DPSP_SHAPE)
     for r in ranks:
         _check_first_step("dpsp_grad", r["dpsp"], want_loss, want,
                           [[SP_LAUNCHES_PER_FORWARD] * 2] * 2, card, n, mesh_shape="2,2",
@@ -2150,7 +2374,17 @@ def phase_dpsp_tp(build_net, cli_main, tmp, card):
     digests = {r["tp"]["param_sha256"] for r in ranks}
     if len(digests) != 1:
         fail(f"tp_grad: after {TP_STEPS} steps the ranks' parameters differ: {digests}")
-    del want
+    # micro-batches of 2 rows over 4 ranks: ranks 0 and 1 one row each, 2 and 3 none
+    per_rank = [DP_ACCUM * LAUNCHES_PER_FORWARD if r < TRAIN_BATCH // DP_ACCUM else 0
+                for r in range(n)]
+    for r in ranks:
+        _check_first_step("dp_accum", r["dp_accum"], accum_loss, accum_want,
+                          [[per_rank[r["rank"]], 0]] * 2, card, n, mesh_shape=str(n),
+                          batch=TRAIN_BATCH, grad_accum=DP_ACCUM, rank=r["rank"],
+                          backend=r["backend"])
+    _check_train_cli("dp_accum_train", str(n), [r["cli"]["dp_accum_train"] for r in ranks],
+                     tmp, card, step_launches=per_rank)
+    del want, accum_want
     torch.cuda.empty_cache()
     return ranks[0]["tp"]["launches"][0][0], ranks[0]["tp"]["launches"][1][0]
 
@@ -2428,6 +2662,12 @@ def main():
         selective_scan, selective_scan_cuda, selective_scan_bwd_cuda, selective_scan_bwd_ref,
         clock_mhz, sms)
 
+    timing_mamba = phase_kernel_mamba(selective_scan, selective_scan_cuda,
+                                      selective_scan_bwd_cuda, selective_scan_bwd_ref,
+                                      clock_mhz, sms)
+    worst = max([worst] + [t[4] for (k, _), t in timing_mamba.items() if k == "fwd"])
+    worst_bwd = max([worst_bwd] + [t[4] for (k, _), t in timing_mamba.items() if k == "bwd"])
+
     # 4. the FMA-rate probe's path, with launch counts
     peak_tflops = 2 * FMA_LANES_PER_SM * sms * clock_mhz * 1e6 / 1e12
     probe_launches, jax_pair, wide = phase_vpu_probe(
@@ -2514,6 +2754,11 @@ def main():
         phase_bf16(build_net, counters, card, smi, rng)
         phase_bf16_train_cli(cli_main, counters, tmp)
 
+        # 10b. the SS2D variants and MambaSS2D (Mamba1D's scan: 384 channels
+        # in one group) at full width
+        variant_launches = phase_variants(build_net, counters, card, smi, rng)
+        mamba_fwd_launches, mamba_step_launches = phase_mamba(counters, card)
+
         # 11. TF32 off (the port's setting) against on, measured
         phase_tf32(build_net, card)
 
@@ -2551,6 +2796,14 @@ def main():
                  bound_by=t[3])
             for (k, b, L, rev, dt), t in sorted(timing_new.items()) if k == which]
     entries[0]["launches_vpu_probe"] = probe_launches["selective_scan_cuda"]
+    entries[0]["launches_variant_forward_256"] = variant_launches
+    entries[0]["launches_mamba_forward"] = mamba_fwd_launches[0]
+    for e, which, n in zip(entries, ("fwd", "bwd"), mamba_step_launches):
+        e["launches_mamba_step"] = n
+        e["mamba_d384_g1_l16384"] = [
+            dict(batch=b, ms=t[0], plain_ms=t[1], bound_ms=t[2], bound_by=t[3],
+                 max_abs_err=t[4])
+            for (k, b), t in sorted(timing_mamba.items()) if k == which]
     for e, n in zip(entries, dp_launches):
         e["launches_dp_step_per_rank"] = n
     for name, src, line, err, launches, which in (

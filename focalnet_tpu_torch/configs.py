@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Tuple
 
-SCAN_BACKENDS = ("auto", "cuda", "chunked", "ref")
+SCAN_BACKENDS = ("auto", "cuda", "chunked", "assoc", "ref")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +62,7 @@ class ModelConfig:
     # recompute every VSSBlock in the backward instead of keeping its activations
     use_checkpoint: bool = False
     # auto: the CUDA kernel for CUDA tensors, the chunked scan for CPU tensors
-    scan_backend: str = "auto"  # auto | cuda | chunked | ref
+    scan_backend: str = "auto"  # auto | cuda | chunked | assoc | ref
     compute_dtype: str = "float32"  # params fp32; bfloat16 activations opt-in
     # multi-rank: mesh axis names for sequence-parallel SS2D scans (L = H*W is
     # sharded over `seq_axis`; `data_axis` names the batch axis).  The mesh

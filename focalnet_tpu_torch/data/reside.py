@@ -110,7 +110,7 @@ class TrainLoader:
     each batch's examples in a pool of ``num_workers`` threads.  ``rows``
     (indices into each batch) makes it decode and yield only those rows of
     every batch, with the crops and flips of the whole batch (a data-parallel
-    rank's share)."""
+    rank's share; with no rows, empty arrays)."""
 
     def __init__(self, path: str, batch_size: int, num_workers: int = 8,
                  crop: int = 256, seed: int = 1234, prefetch: int = 4, rows=None):
@@ -146,6 +146,10 @@ class TrainLoader:
                         idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
                         if self.rows is not None:
                             idxs = idxs[self.rows]
+                        if not len(idxs):  # a rank with no rows of this batch
+                            empty = np.zeros((0, self.crop, self.crop, 3), np.float32)
+                            q.put((empty, empty))
+                            continue
                         pairs = list(ex.map(self._make_example, idxs, seeds[idxs]))
                         q.put((np.stack([p[0] for p in pairs]),
                                np.stack([p[1] for p in pairs])))

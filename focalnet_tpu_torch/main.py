@@ -331,7 +331,10 @@ def parse_args(argv=None):
     p.add_argument("--save_freq", type=int, default=10)
     p.add_argument("--valid_freq", type=int, default=10)
     p.add_argument("--grad_accum", type=int, default=1,
-                   help="micro-batches per optimizer step")
+                   help="micro-batches per optimizer step: any number dividing "
+                        "--batch_size; under a data-parallel --mesh_shape each "
+                        "micro-batch is split over the data ranks (some may "
+                        "hold none), as the JAX trainer reshards it")
     p.add_argument("--crop_size", type=int, default=256)
     p.add_argument("--resume", type=str, default="",
                    help="rolling checkpoint (model.pkl) to continue from")
@@ -367,7 +370,7 @@ def parse_args(argv=None):
     p.add_argument("--vssg_dim", type=int, default=0)
     p.add_argument("--ssm_d_state", type=int, default=0)
     p.add_argument("--scan_backend", type=str, default="",
-                   choices=["", "auto", "cuda", "chunked", "ref"])
+                   choices=["", "auto", "cuda", "chunked", "assoc", "ref"])
     return p.parse_args(argv)
 
 

@@ -10,7 +10,9 @@ not, and weights move between the two packages through ``utils/convert.py``.
   weight and the bias, fan_in = in_channels/groups * kh * kw (for a
   transposed conv, in_channels * kh * kw, as the JAX package counts it).
 - SS2D's raw stacks: x_proj U(+-1/sqrt(d_inner)), dt_proj U(+-dt_rank^-0.5),
-  the softplus-inverse dt bias, A_log = log(1..N), D = 1.
+  the softplus-inverse dt bias, A_log = log(1..N), D = 1 (``initialize``
+  v0); v1 and v2 take :func:`normal` and :func:`uniform` (flax's
+  ``normal(1)`` and ``uniform(0.1)``) for some of them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,18 @@ def trunc_normal_02(t: torch.Tensor, generator: torch.Generator) -> None:
 def uniform_pm(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
     """U(-bound, +bound)."""
     t.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def normal(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """N(0, std^2) (flax's ``initializers.normal(std)``)."""
+    t.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def uniform(t: torch.Tensor, scale: float, generator: torch.Generator) -> None:
+    """U[0, scale) (flax's ``initializers.uniform(scale)``)."""
+    t.uniform_(0.0, scale, generator=generator)
 
 
 def torch_default(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

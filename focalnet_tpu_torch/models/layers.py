@@ -1,10 +1,11 @@
 """Conv building blocks (counterpart of ``focalnet_tpu/models/layers.py``).
 
 NCHW, PyTorch's native conv layout; module names follow the reference
-(``BasicConv.main.0`` is the conv, ``SCM.main.4`` the InstanceNorm,
-``FAM.merge``, ``ResBlock.main.{0,1}``).  ``GhostModule`` and
-``BasicConv``'s BatchNorm option are not ported: no preset uses them
-(ROADMAP).
+(``BasicConv.main.0`` is the conv and ``main.1`` its BatchNorm when
+``norm=True``, ``SCM.main.4`` the InstanceNorm, ``FAM.merge``,
+``ResBlock.main.{0,1}``, ``GhostModule.primary_conv.0`` and
+``cheap_operation.0``).  No preset uses ``norm=True``, ``GhostModule`` or
+:func:`pixel_shuffle`; they are here because the JAX package has them.
 
 Precision follows the JAX package's ``dtype=``: parameters stay fp32 and
 are cast at each use, and a bf16 model rounds where the JAX program rounds.
@@ -104,21 +105,50 @@ class GELU(nn.Module):
         return gelu_exact(x)
 
 
-class BasicConv(nn.Module):
-    """Conv2d, or the transposed k4 s2 p1 ConvTranspose2d, then optional GELU.
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW, in fp32,
+    returned in its input's dtype.  In training mode it normalises by the
+    batch's mean and biased variance and moves the running statistics 0.1 of
+    the way to them, the variance too being the biased one (flax's update;
+    ``nn.BatchNorm2d`` moves it to the unbiased variance); in eval mode it
+    normalises by the running statistics."""
 
-    Padding k//2 as in the reference; no preset uses the BatchNorm option."""
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x):
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps).to(x.dtype)
+        mean = xf.mean((0, 2, 3))
+        var = xf.var((0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+class BasicConv(nn.Module):
+    """Conv2d, or the transposed k4 s2 p1 ConvTranspose2d, then with
+    ``norm=True`` a :class:`BatchNorm2d` (and no conv bias), then optional
+    GELU.  Padding k//2 as in the reference."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 bias=True, act=True, transpose=False):
+                 bias=True, norm=False, act=True, transpose=False):
         super().__init__()
+        bias = bias and not norm
         if transpose:
             conv = ConvTranspose2d(in_channels, out_channels, kernel_size,
                                    stride=stride, padding=kernel_size // 2 - 1, bias=bias)
         else:
             conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                              padding=kernel_size // 2, bias=bias)
-        self.main = nn.Sequential(conv, GELU()) if act else nn.Sequential(conv)
+        layers = [conv] + ([BatchNorm2d(out_channels)] if norm else [])
+        self.main = nn.Sequential(*layers, *([GELU()] if act else []))
 
     def forward(self, x):
         return self.main(x)
@@ -134,6 +164,35 @@ class ResBlock(nn.Module):
 
     def forward(self, x):
         return self.main(x) + x
+
+
+class GhostModule(nn.Module):
+    """Ghost conv: a primary k x k conv to ``init_ch = ceil(oup / ratio)``
+    channels, a cheap depthwise ``dw_size`` conv from each of them to
+    ``ratio - 1`` more (``groups=init_ch``), both concatenated and cut to
+    ``oup``.  No bias, BatchNorm or activation, as in the JAX module."""
+
+    def __init__(self, inp, oup, kernel_size=1, ratio=2, dw_size=3, stride=1):
+        super().__init__()
+        self.oup = oup
+        init_ch = math.ceil(oup / ratio)
+        k = kernel_size
+        self.primary_conv = nn.Sequential(
+            Conv2d(inp, init_ch, k, stride=stride, padding=k // 2, bias=False))
+        self.cheap_operation = nn.Sequential(
+            Conv2d(init_ch, init_ch * (ratio - 1), dw_size, padding=dw_size // 2,
+                   groups=init_ch, bias=False))
+
+    def forward(self, x):
+        x1 = self.primary_conv(x)
+        return torch.cat([x1, self.cheap_operation(x1)], dim=1)[:, :self.oup]
+
+
+def pixel_shuffle(x, r: int):
+    """NCHW pixel shuffle, (B, C r r, H, W) -> (B, C, H r, W r), with
+    PyTorch's channel order: out[c, h r + i, w r + j] = in[c r r + i r + j, h, w]
+    (the JAX function's, on NHWC)."""
+    return F.pixel_shuffle(x, r)
 
 
 class SCM(nn.Module):

@@ -1,7 +1,14 @@
 """SS2D — the 2-D selective-scan operator (counterpart of ``focalnet_tpu/models/ss2d.py``).
 
 in_proj -> x/z split -> depthwise 3x3 -> SiLU -> 4-direction selective scan
--> out_norm LayerNorm -> gate by z -> out_proj.  The dense path, the
+-> out_norm LayerNorm -> gate by z -> out_proj.  Every ``forward_type`` of
+the JAX module's tag grammar is taken (:func:`parse_forward_type`): the
+out-norms ``none``, ``dwconv3`` (a depthwise 3x3 conv named ``out_norm``),
+``softmax`` (over the H W positions of each channel) and ``sigmoid``;
+``noz`` (``in_proj`` d_inner wide, no gate) and ``nozact`` (the raw z
+gates); ``force_fp32`` (base tags v1, and v01 / v2 without ``no32``).  So are
+``initialize`` v0, v1 and v2 and ``d_conv <= 1`` (no depthwise conv, no
+``conv2d`` keys).  The dense path, the
 sequence-parallel one (``seq_axis`` with a ``seq_mesh``) and the
 channel-split one (``tp_axis`` with the mesh, passed as ``seq_mesh`` as in
 the JAX module) are here.
@@ -12,8 +19,11 @@ in it; ``x_proj`` and ``dt_proj`` take their operands rounded to
 ``proj_dtype`` when it is set, sum in fp32 and round to the activation dtype;
 A, D and the dt bias stay fp32; the scan takes u, delta, B and C in the
 activation dtype and writes y, the ``y_accum`` chain and the raster sum in
-``out_dtype`` (fp32 by default); ``out_norm`` computes in fp32 and rounds to
-the activation dtype.
+``out_dtype`` (fp32 by default); the out-norm follows (LayerNorm, dwconv3
+and softmax in fp32), its result is rounded to the activation dtype, then
+gated.  Under ``force_fp32`` u, delta, B and C, each first rounded to the
+activation dtype, reach the scan widened to fp32, as in the JAX module: in
+a bf16 model the kernels then take fp32 operands.
 
 Directions (``x_proj_weight`` is (K=4, R+2N, d_inner), ``dt_projs_weight``
 (4, d_inner, R); ``A_logs``, ``Ds`` and ``dt_projs_bias`` are k-major with
@@ -44,6 +54,8 @@ from torch import nn
 from focalnet_tpu_torch.models.initializers import (
     a_log_init,
     dt_bias_init,
+    normal,
+    uniform,
     uniform_pm,
 )
 from focalnet_tpu_torch.models.layers import Conv2d, LayerNorm, Linear, gelu_exact, silu
@@ -107,7 +119,7 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator = None
-        self.data_shard = (0, 1)
+        self.data_shard = None
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
@@ -133,7 +145,7 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator = None
-        self.data_shard = (0, 1)
+        self.data_shard = None
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
@@ -147,26 +159,27 @@ class Dropout(nn.Module):
 
 
 def _draw(shape, generator, device, data_shard):
-    """Uniform draws for this rank's ``shape[0]`` rows: those of a batch of
-    ``shape[0] * n`` drawn whole, rows ``i * shape[0]`` on, for
-    ``data_shard = (i, n)``; with (0, 1) one draw of ``shape``."""
-    i, n = data_shard
-    b = shape[0]
-    return torch.rand((b * n,) + tuple(shape[1:]), generator=generator,
-                      device=device)[i * b:(i + 1) * b]
+    """Uniform draws for this rank's ``shape[0]`` rows: with ``data_shard =
+    (start, total)`` rows ``start`` on of a batch of ``total`` rows drawn
+    whole; with None one draw of ``shape``."""
+    if data_shard is None:
+        return torch.rand(shape, generator=generator, device=device)
+    start, total = data_shard
+    return torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                      device=device)[start:start + shape[0]]
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator,
-                          data_shard=(0, 1)) -> None:
+                          data_shard=None) -> None:
     """Give every DropPath and Dropout of ``model`` the one ``generator``
     (on the device the model runs on) to draw its masks from.
-    ``data_shard = (i, n)``: this rank is data index ``i`` of ``n`` and its
-    batch the ``i``-th of ``n`` equal blocks of the whole, whose masks are
-    drawn whole (the masks one process draws for the whole batch)."""
+    ``data_shard = (start, total)``: this rank's rows are rows ``start`` on
+    of a batch of ``total``, whose masks are drawn whole (the masks one
+    process draws for the whole batch); None: the rank's batch is the whole."""
     for m in model.modules():
         if isinstance(m, (DropPath, Dropout)):
             m.generator = generator
-            m.data_shard = tuple(data_shard)
+            m.data_shard = None if data_shard is None else tuple(data_shard)
 
 
 class Mlp(nn.Module):
@@ -201,13 +214,11 @@ class SS2D(nn.Module):
             raise ValueError("seq_axis and tp_axis both shard the same scan call; pick one "
                              "(they compose with data_axis, not each other)")
         flags = parse_forward_type(forward_type)
-        if flags["out_norm"] != "ln" or flags["disable_z"] or flags["disable_z_act"]:
-            raise NotImplementedError(
-                f"forward_type {forward_type!r}: only the LayerNorm out-norm with "
-                "the activated z gate (v4 and its kin) is ported; see ROADMAP.md")
-        if initialize != "v0" or d_conv <= 1:
-            raise NotImplementedError(
-                "only initialize='v0' with a depthwise conv (d_conv > 1) is ported")
+        self.out_norm_kind = flags["out_norm"]
+        self.force_fp32 = flags["force_fp32"]
+        self.disable_z, self.disable_z_act = flags["disable_z"], flags["disable_z_act"]
+        self.initialize = initialize
+        self.d_conv = d_conv
         self.d_inner = D = int(ssm_ratio * d_model)
         self.d_state = N = d_state
         self.rank = R = math.ceil(d_model / 16) if dt_rank == "auto" else dt_rank
@@ -221,25 +232,40 @@ class SS2D(nn.Module):
         # parameters, and the state dict does not change)
         self.seq_mesh, self.seq_axis, self.tp_axis = seq_mesh, seq_axis, tp_axis
 
-        self.in_proj = Linear(d_model, 2 * D, bias=bias)
-        self.conv2d = Conv2d(D, D, d_conv, padding=(d_conv - 1) // 2,
-                             groups=D, bias=conv_bias)
+        self.in_proj = Linear(d_model, D if self.disable_z else 2 * D, bias=bias)
+        if d_conv > 1:
+            self.conv2d = Conv2d(D, D, d_conv, padding=(d_conv - 1) // 2,
+                                 groups=D, bias=conv_bias)
         self.x_proj_weight = nn.Parameter(torch.empty(K_DIRS, R + 2 * N, D))
         self.dt_projs_weight = nn.Parameter(torch.empty(K_DIRS, D, R))
         self.dt_projs_bias = nn.Parameter(torch.empty(K_DIRS, D))
         self.A_logs = nn.Parameter(torch.empty(K_DIRS * D, N))
         self.Ds = nn.Parameter(torch.empty(K_DIRS * D))
-        self.out_norm = LayerNorm(D, eps=1e-5)
+        if self.out_norm_kind == "ln":
+            self.out_norm = LayerNorm(D, eps=1e-5)
+        elif self.out_norm_kind == "dwconv3":
+            self.out_norm = Conv2d(D, D, 3, padding=1, groups=D, bias=False)
         self.out_proj = Linear(D, d_model, bias=bias)
         self.dropout = Dropout(dropout)
 
     @torch.no_grad()
     def reset_parameters_from(self, generator: torch.Generator) -> None:
-        """The v0 laws of the raw parameter stacks."""
+        """The raw parameter stacks' laws by ``initialize``: v0 the
+        reference's; v1 normal(1) for the dt weights and bias and A_log; any
+        other tag v2 (as in the JAX module): U[0, 0.1) for the dt weights and
+        bias, A_log zero.  x_proj U(+-1/sqrt(d_inner)) and D = 1 in all."""
         uniform_pm(self.x_proj_weight, 1.0 / math.sqrt(self.d_inner), generator)
-        uniform_pm(self.dt_projs_weight, self.dt_scale * self.rank ** -0.5, generator)
-        dt_bias_init(self.dt_projs_bias, generator, *self.dt_range)
-        a_log_init(self.A_logs, generator)
+        if self.initialize == "v0":
+            uniform_pm(self.dt_projs_weight, self.dt_scale * self.rank ** -0.5, generator)
+            dt_bias_init(self.dt_projs_bias, generator, *self.dt_range)
+            a_log_init(self.A_logs, generator)
+        elif self.initialize == "v1":
+            for t in (self.dt_projs_weight, self.dt_projs_bias, self.A_logs):
+                normal(t, 1.0, generator)
+        else:
+            for t in (self.dt_projs_weight, self.dt_projs_bias):
+                uniform(t, 0.1, generator)
+            self.A_logs.zero_()
         self.Ds.fill_(1.0)
 
     def _project(self, w, t, dtype):
@@ -250,8 +276,32 @@ class SS2D(nn.Module):
             w, t = w.to(self.proj_dtype), t.to(self.proj_dtype)
         return torch.matmul(w.float(), t.float()).to(dtype)
 
+    def _scan_operands(self, *ts):
+        """u, delta, B, C as the scan takes them: widened to fp32 under
+        ``force_fp32`` (after their rounding to the activation dtype, as in
+        the JAX module), else as they are."""
+        return tuple(t.float() for t in ts) if self.force_fp32 else ts
+
+    def _out_norm(self, y):
+        """The tag's out-norm of the NCHW scan output y (B, D, H, W) ->
+        NHWC (B, H, W, D): LayerNorm or the depthwise 3x3 conv in fp32, the
+        softmax over the H W positions of each channel (in fp32), the
+        sigmoid, or none."""
+        kind = self.out_norm_kind
+        if kind == "dwconv3":
+            return self.out_norm(y.float()).permute(0, 2, 3, 1)
+        y = y.permute(0, 2, 3, 1)
+        if kind == "ln":
+            return self.out_norm(y.float())
+        if kind == "softmax":
+            Bsz, H, W, D = y.shape
+            return torch.softmax(y.float().reshape(Bsz, H * W, D), dim=1).reshape(y.shape)
+        if kind == "sigmoid":
+            return torch.sigmoid(y)
+        return y
+
     def _core(self, x):
-        """4-direction scan of NCHW (B, D, H, W) -> normalised NHWC (B, H, W, D)
+        """4-direction scan of NCHW (B, D, H, W) -> out-normed NHWC (B, H, W, D)
         in x's dtype."""
         Bsz, D, H, W = x.shape
         N, R, L = self.d_state, self.rank, H * W
@@ -270,11 +320,14 @@ class SS2D(nn.Module):
             dts_f, Bs_f, Cs_f, dts_r, Bs_r, Cs_r = torch.split(
                 xd, [R, N, N, R, N, N], dim=1)
 
+            u = xr.float() if self.force_fp32 else xr
+
             def dscan(dts, Bm, Cm, k, reverse, y_accum=None):
                 rows = slice(k * D, (k + 1) * D)
+                delta, Bm, Cm = self._scan_operands(
+                    self._project(self.dt_projs_weight[k], dts, x.dtype), Bm, Cm)
                 return selective_scan(
-                    xr, self._project(self.dt_projs_weight[k], dts, x.dtype),
-                    A[rows], Bm[:, None].contiguous(), Cm[:, None].contiguous(),
+                    u, delta, A[rows], Bm[:, None].contiguous(), Cm[:, None].contiguous(),
                     D=Ds[rows], delta_bias=bias[rows], delta_softplus=True,
                     out_dtype=self.out_dtype, backend=self.scan_backend,
                     reverse=reverse, y_accum=y_accum,
@@ -284,7 +337,7 @@ class SS2D(nn.Module):
                        y_accum=dscan(dts_f, Bs_f, Cs_f, i, False))
             yr = ys.reshape(Bsz, D, W, H).transpose(2, 3) if col else ys.reshape(Bsz, D, H, W)
             y = yr if y is None else y + yr
-        return self.out_norm(y.permute(0, 2, 3, 1).float()).to(x.dtype)
+        return self._out_norm(y).to(x.dtype)
 
     def _core_sharded(self, x, A, Ds, bias):
         """``_core`` with every scan sharded across the mesh: the row and
@@ -310,10 +363,11 @@ class SS2D(nn.Module):
             dts, Bs, Cs = torch.split(xd, [R, N, N], dim=2)
             delta = self._project(self.dt_projs_weight[ks], dts, x.dtype)  # (B, 2, D, L)
             rows = slice(k0 * D, (k0 + 2) * D)
+            u, delta, Bs, Cs = self._scan_operands(u2, delta.reshape(Bsz, 2 * D, L), Bs, Cs)
             sharded = (selective_scan_seq_sharded if self.tp_axis is None
                        else selective_scan_tp)
             return sharded(
-                u2, delta.reshape(Bsz, 2 * D, L), A[rows], Bs.contiguous(), Cs.contiguous(),
+                u, delta, A[rows], Bs.contiguous(), Cs.contiguous(),
                 D=Ds[rows], delta_bias=bias[rows], delta_softplus=True, mesh=self.seq_mesh,
                 axis=self.tp_axis or self.seq_axis, out_dtype=self.out_dtype,
                 backend=self.scan_backend, reverse=reverse, **kw)
@@ -325,12 +379,21 @@ class SS2D(nn.Module):
             ys = scan(2, True, y_accum=scan(0, False, gather=False))
         ys = ys.reshape(Bsz, 2, D, L)
         y = ys[:, 0].reshape(Bsz, D, H, W) + ys[:, 1].reshape(Bsz, D, W, H).transpose(2, 3)
-        return self.out_norm(y.permute(0, 2, 3, 1).float()).to(x.dtype)
+        return self._out_norm(y).to(x.dtype)
 
     def forward(self, x):
-        """x: (B, H, W, d_model) -> (B, H, W, d_model)."""
-        h, z = self.in_proj(x).chunk(2, dim=-1)
-        z = self.act(z)
-        h = self.act(self.conv2d(h.permute(0, 3, 1, 2)))
-        y = self._core(h) * z
+        """x: (B, H, W, d_model) -> (B, H, W, d_model).  ``noz``: no gate;
+        ``nozact``: the raw z gates; ``d_conv <= 1``: no depthwise conv
+        before the activation."""
+        h, z = self.in_proj(x), None
+        if not self.disable_z:
+            h, z = h.chunk(2, dim=-1)
+            if not self.disable_z_act:
+                z = self.act(z)
+        h = h.permute(0, 3, 1, 2)
+        if self.d_conv > 1:
+            h = self.conv2d(h)
+        y = self._core(self.act(h))
+        if z is not None:
+            y = y * z
         return self.dropout(self.out_proj(y))

@@ -17,21 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from focalnet_tpu_torch.ops.scan_ref import _expand_groups, _prepare
-
-
-def _pair_scan(a, b):
-    """Inclusive (a, b) pair scan along the last axis (Hillis-Steele doubling,
-    the stable tree order of ``jax.lax.associative_scan``)."""
-    T = a.shape[-1]
-    shift = 1
-    while shift < T:
-        a_prev = F.pad(a[..., :-shift], (shift, 0), value=1.0)
-        b_prev = F.pad(b[..., :-shift], (shift, 0), value=0.0)
-        b = a * b_prev + b
-        a = a * a_prev
-        shift *= 2
-    return a, b
+from focalnet_tpu_torch.ops.scan_ref import _expand_groups, _pair_scan, _prepare
 
 
 def scan_states(a, b, chunk=64, h0=None):

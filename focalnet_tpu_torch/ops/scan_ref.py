@@ -1,4 +1,4 @@
-"""Sequential selective-scan oracle in plain PyTorch (``focalnet_tpu/ops/scan_ref.py``).
+"""Selective-scan oracles in plain PyTorch (``focalnet_tpu/ops/scan_ref.py``).
 
 The Mamba S6 recurrence, for each (batch, channel) pair with per-step ``dt``
 and state size N:
@@ -15,6 +15,10 @@ contract).  Canonical shapes (G = number of B/C groups, dim % G == 0):
     B, C     : (batch, G, N, L)
     D        : (dim,) or None
     delta_bias : (dim,) or None
+
+Two oracles, as in the JAX module: :func:`selective_scan_ref`, one step at a
+time, and :func:`selective_scan_assoc`, a parallel prefix scan over the
+(a, b) pairs of the whole sequence (the ``assoc`` backend).
 """
 
 from __future__ import annotations
@@ -48,6 +52,21 @@ def _expand_groups(BC, dim):
     return torch.repeat_interleave(BC, dim // BC.shape[1], dim=1)
 
 
+def _pair_scan(a, b):
+    """Inclusive (a, b) pair scan along the last axis over the monoid
+    ``(a2, b2) o (a1, b1) = (a1 a2, a2 b1 + b2)`` (Hillis-Steele doubling,
+    the stable tree order of ``jax.lax.associative_scan``)."""
+    T = a.shape[-1]
+    shift = 1
+    while shift < T:
+        a_prev = F.pad(a[..., :-shift], (shift, 0), value=1.0)
+        b_prev = F.pad(b[..., :-shift], (shift, 0), value=0.0)
+        b = a * b_prev + b
+        a = a * a_prev
+        shift *= 2
+    return a, b
+
+
 def selective_scan_ref(u, delta, A, B, C, D=None, delta_bias=None,
                        delta_softplus=False, out_dtype=torch.float32, h0=None,
                        return_last_state=False):
@@ -71,3 +90,25 @@ def selective_scan_ref(u, delta, A, B, C, D=None, delta_bias=None,
     if D is not None:
         y = y + u * D[None, :, None]
     return (y.to(out_dtype), h) if return_last_state else y.to(out_dtype)
+
+
+def selective_scan_assoc(u, delta, A, B, C, D=None, delta_bias=None,
+                         delta_softplus=False, out_dtype=torch.float32, h0=None,
+                         return_last_state=False):
+    """Vectorised oracle: one pair scan over all L positions
+    (``selective_scan_assoc`` of the JAX module, ``lax.associative_scan``
+    there).  It holds (batch, dim, N, L) intermediates: tests and small
+    shapes only.  ``h0`` enters every position through the scanned decay
+    (``h_i += a_0 ... a_i h0``); ``return_last_state=True`` also returns
+    ``h[..., -1]``."""
+    u, delta, A, B, C, D = _prepare(u, delta, A, B, C, D, delta_bias, delta_softplus)
+    dim = u.shape[1]
+    a = torch.exp(delta[:, :, None, :] * A[None, :, :, None])  # (batch, dim, N, L)
+    b = delta[:, :, None, :] * _expand_groups(B, dim) * u[:, :, None, :]
+    a_scan, h = _pair_scan(a, b)
+    if h0 is not None:
+        h = h + a_scan * h0.float()[..., None]
+    y = (h * _expand_groups(C, dim)).sum(2)
+    if D is not None:
+        y = y + u * D[None, :, None]
+    return (y.to(out_dtype), h[..., -1]) if return_last_state else y.to(out_dtype)

@@ -3,13 +3,18 @@
 - ``"cuda"``    — the Hopper kernels (:mod:`.selective_scan_cuda`); CUDA tensors only.
 - ``"chunked"`` — plain chunked scan, the kernels' plain version.
 - ``"ref"``     — sequential oracle.
+- ``"assoc"``   — vectorised oracle, one pair scan over all of L
+  (:func:`.scan_ref.selective_scan_assoc`).
+- ``"matrix"``  — the chunk-matrix (tril-mask) form
+  (:mod:`.scan_matrix`).
 - ``"auto"``    — ``cuda`` for CUDA tensors, ``chunked`` for CPU tensors.
 
 Where an input needs a gradient, ``cuda`` and ``chunked`` go through
 :class:`SelectiveScanFn` (``focalnet_tpu/ops/pallas_scan.py::_scan_core``'s
 custom VJP): on ``cuda`` the forward kernel, saving its chunk states, and the
 backward kernel; on ``chunked`` the plain forward and the plain adjoint
-(:mod:`.scan_bwd_ref`).  ``ref`` differentiates the oracle with autograd.
+(:mod:`.scan_bwd_ref`).  ``ref``, ``assoc`` and ``matrix`` differentiate
+their plain ops with autograd.
 
 On the plain backends ``reverse`` is flip / scan / flip and ``y_accum`` a
 plain add; the kernels do both natively.
@@ -27,14 +32,16 @@ import torch
 
 from focalnet_tpu_torch.ops.scan_bwd_ref import selective_scan_bwd_ref
 from focalnet_tpu_torch.ops.scan_chunked import selective_scan_chunked
-from focalnet_tpu_torch.ops.scan_ref import selective_scan_ref
+from focalnet_tpu_torch.ops.scan_matrix import selective_scan_matrix
+from focalnet_tpu_torch.ops.scan_ref import selective_scan_assoc, selective_scan_ref
 from focalnet_tpu_torch.ops.selective_scan_cuda import (
     selective_scan_bwd_cuda,
     selective_scan_cuda,
 )
 
-BACKENDS = ("auto", "cuda", "chunked", "ref")
-_PLAIN = {"chunked": selective_scan_chunked, "ref": selective_scan_ref}
+BACKENDS = ("auto", "cuda", "chunked", "assoc", "ref", "matrix")
+_PLAIN = {"chunked": selective_scan_chunked, "assoc": selective_scan_assoc,
+          "ref": selective_scan_ref, "matrix": selective_scan_matrix}
 
 
 def _plain_scan(backend, u, delta, A, B, C, D=None, delta_bias=None,

@@ -7,7 +7,11 @@ decay), the per-epoch warm-up + cosine learning rate, rolling / periodic /
 best / final checkpoints, validation (``valid_batch`` images a forward) at
 epoch 1 and every ``valid_freq`` epochs, and stdout lines in the reference's
 log-scraper formats (``Time: ... Epoch: ... Iter: ...``, ``EPOCH: ...``,
-``Average PSNR``).
+``Average PSNR``).  Beside ``train.log`` and ``train.metrics.jsonl`` it writes
+the reference's TensorBoard scalars ("Pixel Loss" and "FFT Loss" at each
+print on the global-step axis, "PSNR" by epoch) to
+``<model_save_dir>/runs`` wherever ``torch.utils.tensorboard`` imports, as
+the JAX trainer does.
 
 The model trains in ``train()`` mode: DropPath and Dropout draw from one
 generator on the card, seeded from ``seed`` and the step index at every
@@ -17,14 +21,17 @@ print boundary, so the host does not wait for the card every step.
 
 Under a mesh (``parallel.Mesh``) every rank runs this loop on the same
 batches of the one-process loader with the same initial weights, and takes
-its rows of each: those of its ``data`` index, the rank's share of each
-micro-batch as the JAX trainer shards them (:func:`batch_rows`); the ranks
-of one ``seq`` or ``model`` row take the same rows and shard their model's
-SS2D scans over L or over the channels (``models.ss2d``).  DropPath and
-Dropout draw the whole batch's masks and keep the rank's rows, so the
-masks are those of the one-process run.  :func:`sync_grads` averages the
-gradients and the loss over the ranks before each Adam step, so that every
-rank takes the same step, to the bit.  Validation runs the mesh-free model
+its rows of each: the rank's share of each micro-batch as the JAX trainer
+reshards them over ``data`` (:func:`batch_rows`), uneven where the axis does
+not divide the micro-batch and none where it exceeds it; the ranks of one
+``seq`` or ``model`` row take the same rows and shard their model's SS2D
+scans over L or over the channels (``models.ss2d``).  DropPath and Dropout
+draw each micro-batch's masks whole and keep the rank's rows, so the masks
+are those of the one-process run.  Each rank weights its losses by its
+share of the rows (:func:`accumulate`) and :func:`sync_grads` averages the
+gradients and the loss over the ranks before each Adam step (a rank
+without rows adds zeros, and joins every collective), so that every rank
+takes the one-process step, the same to the bit on every rank.  Validation runs the mesh-free model
 (``mesh_free``, the JAX trainer's ``eval_model``), the ranks splitting the
 images (``evaluation.validate``).  Only rank 0 prints, writes the logs and
 the checkpoints, and prints ``Mesh: {...} over N devices`` as the JAX
@@ -69,59 +76,92 @@ def optimizer_step(model, optimizer, grad_clip: float = 0.001) -> None:
 
 
 def sync_grads(model, mesh, extra: torch.Tensor) -> torch.Tensor:
-    """Average every gradient of ``model``, and the fp32 vector ``extra``,
-    over the ranks of ``mesh`` (one flat all-reduce); returns ``extra``'s
-    average."""
+    """Average every gradient of ``model`` (zero where a rank has none: it
+    held no rows), and the fp32 vector ``extra``, over the ranks of
+    ``mesh`` (one flat all-reduce); returns ``extra``'s average."""
     from focalnet_tpu_torch.parallel.mesh import all_reduce
 
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     flat = all_reduce(torch.cat([g.reshape(-1) for g in grads] + [extra]), mesh) / mesh.size
     parts = flat.split([g.numel() for g in grads] + [extra.numel()])
-    for g, v in zip(grads, parts):
+    for p, g, v in zip(params, grads, parts):
         g.copy_(v.view_as(g))
+        p.grad = g
     return parts[-1]
 
 
+def _check_accum(batch_size: int, grad_accum: int) -> None:
+    if batch_size % grad_accum:
+        raise ValueError(f"batch size {batch_size} not divisible by grad_accum {grad_accum}")
+
+
+def micro_batch_rows(batch_size: int, grad_accum: int, mesh) -> slice:
+    """This rank's rows of each of the ``grad_accum`` micro-batches of a
+    batch of ``batch_size``: the JAX trainer reshards each micro-batch over
+    the ``data`` axis, so the rank takes its :func:`..parallel.mesh.local_rows`
+    of ``batch_size / grad_accum`` rows (an uneven split where the axis does
+    not divide them; none at all on the last ranks where it exceeds them)."""
+    _check_accum(batch_size, grad_accum)
+    return local_rows(batch_size // grad_accum, mesh)
+
+
 def batch_rows(batch_size: int, grad_accum: int, mesh):
-    """This rank's rows of every batch of ``batch_size`` (an index array; None
-    for all of them): its ``data`` index's share of each of the
-    ``grad_accum`` micro-batches, in order, as the JAX trainer shards them,
-    so that the rank's own micro-batches are its shares of the one-process
-    run's.  Raises where the micro-batch does not split over the data axis:
-    the JAX trainer reshards such micro-batches, the port does not."""
-    n = mesh.shape.get("data", 1) if mesh is not None else 1
-    if n == 1:
+    """This rank's rows of every batch of ``batch_size`` (an index array,
+    maybe empty; None for all of them): its :func:`micro_batch_rows` of each
+    micro-batch, in order, so that the rank's own micro-batches are its
+    shares of the one-process run's."""
+    if mesh is None or mesh.shape.get("data", 1) == 1:
         return None
-    if batch_size % n or (batch_size // n) % grad_accum:
-        raise ValueError(
-            f"batch_size {batch_size} over a data axis of {n} with grad_accum {grad_accum}: "
-            "each rank's rows must split into grad_accum equal micro-batches (the port "
-            "does not reshard micro-batches as the JAX trainer does)")
-    mb = batch_size // grad_accum
-    return np.concatenate([np.arange(j * mb, (j + 1) * mb)[local_rows(mb, mesh)]
-                           for j in range(grad_accum)])
+    mb, rows = batch_size // grad_accum, micro_batch_rows(batch_size, grad_accum, mesh)
+    return np.concatenate([np.arange(j * mb, (j + 1) * mb)[rows] for j in range(grad_accum)])
+
+
+def accumulate(model, hazy, gt, loss_fn, grad_accum: int = 1, mesh=None,
+               batch_size: Optional[int] = None, n_terms: int = 3) -> torch.Tensor:
+    """The backward of one step's loss into the gradients of ``model``, and
+    the step's ``n_terms`` loss terms (``loss_fn(preds, gt)``, a tuple whose
+    first term is the one differentiated) summed over its micro-batches: ``hazy``,
+    ``gt`` are this rank's rows of each of ``grad_accum`` micro-batches of a
+    batch of ``batch_size`` (default: the rank's rows times the ``data``
+    axis).  Each micro-batch's terms are weighted so that, averaged over the
+    mesh's ranks and divided by ``grad_accum``, they are the one-process
+    step's means: a rank's share of ``n`` of a micro-batch's ``mb`` rows
+    counts ``data * n / mb`` (1 where the axis splits every micro-batch
+    evenly).  A rank with no rows runs no forward; its sums and gradients
+    stay zero."""
+    rows = hazy.shape[0]
+    n_data = mesh.shape.get("data", 1) if mesh is not None else 1
+    whole = rows * n_data if batch_size is None else batch_size
+    _check_accum(rows, grad_accum)
+    _check_accum(whole, grad_accum)
+    weight = n_data * rows / whole
+    sums = torch.zeros(n_terms, device=hazy.device)
+    if rows:
+        for h, g in zip(hazy.chunk(grad_accum), gt.chunk(grad_accum)):
+            terms = loss_fn(model(h), g)
+            (terms[0] * weight / grad_accum).backward()
+            sums += torch.stack([t.detach() for t in terms]) * weight
+    return sums
 
 
 def make_train_step(model, optimizer, fft_weight: float = 0.1,
-                    grad_clip: float = 0.001, grad_accum: int = 1, mesh=None):
+                    grad_clip: float = 0.001, grad_accum: int = 1, mesh=None,
+                    batch_size: Optional[int] = None):
     """One step: loss, gradients, clip, Adam.  ``grad_accum > 1`` splits the
     batch into that many equal micro-batches and averages their gradients
     before the one update (the loss is a per-sample mean, so this is the
-    full-batch gradient up to rounding).  Under a ``mesh`` the gradients and
-    the three means are averaged over its ranks (:func:`sync_grads`) before
-    the update.  Returns the loss, content and fft means as 0-d tensors on
-    the device."""
+    full-batch gradient up to rounding).  Under a ``mesh`` the step takes
+    this rank's rows of each micro-batch of a batch of ``batch_size``
+    (:func:`batch_rows`; default the rank's rows times the ``data`` axis),
+    maybe none, and the gradients and the three means are averaged over its
+    ranks (:func:`accumulate`, :func:`sync_grads`) before the update.
+    Returns the loss, content and fft means as 0-d tensors on the device."""
 
     def train_step(hazy, gt):
-        if hazy.shape[0] % grad_accum:
-            raise ValueError(f"batch size {hazy.shape[0]} not divisible by "
-                             f"grad_accum {grad_accum}")
         optimizer.zero_grad(set_to_none=True)
-        sums = torch.zeros(3, device=hazy.device)
-        for h, g in zip(hazy.chunk(grad_accum), gt.chunk(grad_accum)):
-            total, content, fft = multiscale_loss(model(h), g, fft_weight)
-            (total / grad_accum).backward()
-            sums += torch.stack([total, content, fft]).detach()
+        sums = accumulate(model, hazy, gt, lambda p, g: multiscale_loss(p, g, fft_weight),
+                          grad_accum, mesh, batch_size)
         if mesh is not None:
             sums = sync_grads(model, mesh, sums)
         optimizer_step(model, optimizer, grad_clip)
@@ -129,6 +169,17 @@ def make_train_step(model, optimizer, fft_weight: float = 0.1,
         return {"loss": loss, "content": content, "fft": fft}
 
     return train_step
+
+
+def _summary_writer(log_dir: str):
+    """A TensorBoard ``SummaryWriter`` on ``log_dir``, or None where it does
+    not import (no ``tensorboard`` package): the JAX trainer writes the
+    events only where the writer imports, and so does the port."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except Exception:
+        return None
+    return SummaryWriter(log_dir)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -155,21 +206,24 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
         print("Resume from %d" % epoch)
         start_epoch = epoch + 1
 
+    rows = batch_rows(cfg.batch_size, cfg.grad_accum, mesh)
     loader = TrainLoader(cfg.data_dir, cfg.batch_size, cfg.num_worker,
-                         crop=cfg.crop_size, seed=cfg.seed,
-                         rows=batch_rows(cfg.batch_size, cfg.grad_accum, mesh))
+                         crop=cfg.crop_size, seed=cfg.seed, rows=rows)
     max_iter = len(loader)
     generator = torch.Generator(device=device)
-    data_shard = ((mesh.axis_index("data"), mesh.shape["data"])
-                  if mesh is not None and "data" in mesh.shape else (0, 1))
+    data_shard = None
+    if rows is not None:  # the rank's rows of each micro-batch, whose masks are drawn whole
+        micro = micro_batch_rows(cfg.batch_size, cfg.grad_accum, mesh)
+        data_shard = (micro.start, cfg.batch_size // cfg.grad_accum)
     set_dropout_generator(model, generator, data_shard)
     model.train()
     train_step = make_train_step(model, optimizer, cfg.fft_loss_weight,
-                                 cfg.grad_clip, cfg.grad_accum, mesh)
+                                 cfg.grad_clip, cfg.grad_accum, mesh, cfg.batch_size)
 
     logf = open(log_file, "a") if log_file and lead else None
     metricsf = (open(os.path.splitext(log_file)[0] + ".metrics.jsonl", "a")
                 if log_file and lead else None)
+    tb = _summary_writer(os.path.join(cfg.model_save_dir, "runs")) if log_file and lead else None
 
     def log(msg):
         print(msg, flush=True)
@@ -220,6 +274,10 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
                     log_metric(step=(epoch_idx - 1) * max_iter + iter_idx,
                                pixel_loss=iter_pixel.average(),
                                fft_loss=iter_fft.average(), lr=lr)
+                    if tb:  # the reference's global-step axis
+                        gs = iter_idx + (epoch_idx - 1) * max_iter
+                        tb.add_scalar("Pixel Loss", iter_pixel.average(), gs)
+                        tb.add_scalar("FFT Loss", iter_fft.average(), gs)
                     iter_timer.tic()
                     iter_pixel.reset()
                     iter_fft.reset()
@@ -241,6 +299,8 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
                     val = validate(model, cfg.data_dir, batch_size=cfg.valid_batch, mesh=mesh)
                 log("%03d epoch \n Average PSNR %.2f dB" % (epoch_idx, val))
                 log_metric(epoch=epoch_idx, psnr=val)
+                if tb:
+                    tb.add_scalar("PSNR", val, epoch_idx)
                 if val >= best_psnr:
                     best_psnr = val
                     if ckpt:
@@ -249,6 +309,8 @@ def train(model, cfg: TrainConfig, resume: Optional[str] = None,
         if ckpt:
             ckpt.save_final(model, cfg.num_epoch)
     finally:
+        if tb:
+            tb.close()
         if logf:
             logf.close()
         if metricsf:

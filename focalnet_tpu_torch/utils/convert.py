@@ -12,8 +12,25 @@ rules, since the port imports nothing of ``focalnet_tpu``:
       with SPATIALLY FLIPPED taps (flax's SAME transposed conv vs torch's
       k4 s2 p1 one)
   flax Dense kernel (I, O)                 -> torch Linear (O, I)
-  flax LayerNorm/GroupNorm scale           -> weight
-  raw stacks (x_proj_weight, dt_projs_*, A_logs, Ds): unchanged
+  flax LayerNorm/GroupNorm/BatchNorm scale -> weight
+  flax BatchNorm batch_stats mean / var    -> running_mean / running_var
+  raw stacks (x_proj_weight, dt_projs_*, A_logs, Ds, and Mamba1D's
+      conv1d_weight (K, D), x_proj_weight, dt_proj_*, A_logs, Ds): unchanged
+
+Three keys and layouts depart from the JAX converter's, which gets them
+wrong (ROADMAP Queue 3 logs them as faults on the JAX side):
+
+- SS2D's ``dwconv3`` out-norm kernel (3, 3, 1, D) becomes ``out_norm.weight``
+  in torch's (D, 1, 3, 3); the JAX map treats every ``out_norm`` as a norm
+  scale and leaves the kernel in flax's layout, which no Conv2d loads.
+- GhostModule's ``Conv_0`` and ``Conv_1`` become the reference's
+  ``primary_conv.0`` and ``cheap_operation.0`` (a module holding a
+  ``Conv_1`` is a GhostModule: no other module of the package has two
+  convs); the JAX map sends both to ``main.0``, and they collide.
+- BasicConv's ``BatchNorm_0`` becomes the reference's ``main.1`` (the JAX map
+  keeps ``BatchNorm_0``), and its running statistics, which flax keeps in the
+  ``batch_stats`` collection, come from the tree passed as ``batch_stats``
+  (with ``num_batches_tracked`` 0: flax counts no batches).
 """
 
 from __future__ import annotations
@@ -27,10 +44,15 @@ import numpy as np
 import torch
 
 
-def _translate(path: Tuple[str, ...]) -> Tuple[str, str]:
+_GHOST_CONVS = {"Conv_0": "primary_conv", "Conv_1": "cheap_operation"}
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _translate(path: Tuple[str, ...], ghost: bool = False) -> Tuple[str, str]:
     """Map a flax param path (module names..., leaf) to the reference's
     state-dict key and the layout transform, one of
-    {conv, conv_t, dense, norm_scale, plain}."""
+    {conv, conv_t, dense, norm_scale, plain}.  ``ghost``: the leaf's conv
+    is one of a GhostModule's two."""
     parts: List[str] = []
     kind = "plain"
     leaf = path[-1]
@@ -52,6 +74,12 @@ def _translate(path: Tuple[str, ...]) -> Tuple[str, str]:
         elif re.fullmatch(r"GroupNorm_\d+", m):
             parts += ["main", "4"]  # SCM's InstanceNorm slot
             kind = "norm_scale"
+        elif re.fullmatch(r"BatchNorm_\d+", m):
+            parts += ["main", "1"]  # BasicConv's BatchNorm slot
+            kind = "norm_scale"
+        elif ghost and m in _GHOST_CONVS:
+            parts += [_GHOST_CONVS[m], "0"]
+            kind = "conv"
         elif re.fullmatch(r"(Conv|ConvTranspose)_\d+", m):
             parts += ["main", "0"]  # BasicConv's conv slot
             kind = "conv_t" if m.startswith("ConvTranspose") else "conv"
@@ -82,8 +110,12 @@ def _translate(path: Tuple[str, ...]) -> Tuple[str, str]:
         else:  # mlp, op, ...
             parts.append(m)
 
-    if leaf in ("kernel", "scale"):
+    if leaf == "kernel" and kind == "norm_scale":  # the dwconv3 out-norm
+        torch_leaf, kind = "weight", "conv"
+    elif leaf in ("kernel", "scale"):
         torch_leaf = "weight"
+    elif leaf in _BATCH_STATS:
+        torch_leaf, kind = _BATCH_STATS[leaf], "plain"
     else:  # bias and the raw stacks keep their layout
         torch_leaf = leaf
         kind = "plain"
@@ -107,19 +139,25 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
     """JAX param tree (nested mappings of arrays, with or without the top
     ``"params"`` collection) -> the port's state dict, reference keys and
-    layouts, fp32."""
+    layouts, fp32.  ``batch_stats`` (the ``batch_stats`` collection, with or
+    without its top key) adds each BatchNorm's running mean and variance,
+    and its ``num_batches_tracked`` (0)."""
+    leaves = []
+    for tree, top in ((params, "params"), (batch_stats or {}, "batch_stats")):
+        leaves += [(p[1:] if p[0] == top else p, v) for p, v in _leaves(tree)]
+    ghosts = {p[:-2] for p, _ in leaves if len(p) >= 2 and p[-2] == "Conv_1"}
     sd: Dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(params):
-        if path[0] == "params":
-            path = path[1:]
-        key, kind = _translate(path)
+    for path, leaf in leaves:
+        key, kind = _translate(path, ghost=path[:-2] in ghosts)
         if key in sd:
             raise ValueError(f"two leaves map to the key {key!r} (second: {'.'.join(path)})")
         w = _INVERSE_TRANSFORMS[kind](np.asarray(leaf, dtype=np.float32))
         sd[key] = torch.from_numpy(np.array(w, order="C"))
+        if path[-1] == "mean":
+            sd[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(0)
     return sd
 
 

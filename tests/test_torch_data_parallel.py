@@ -5,13 +5,17 @@ in one process, and ``auto_mesh_shape`` against the JAX trainer's rule.
 
 - one train step of the tiny model (DropPath on) data parallel over 4 ranks
   and dp x sp over a ``(2, 2)`` mesh, against the one-process step on the
-  whole batch: loss within rtol 1e-5, gradients within 1e-3 max|g| + 1e-5,
-  the ranks' parameters equal bit for bit;
+  whole batch, and over 4 ranks with ``grad_accum`` 2 (micro-batches of 2
+  rows: ranks 2 and 3 hold none) against the one-process step over the same
+  micro-batches: loss within rtol 1e-5, gradients within 1e-3 max|g| +
+  1e-5, the ranks' parameters equal bit for bit;
 - ``--mode infer`` at ``--mesh_shape 2`` and ``1,2`` on a directory of
   mixed sizes: JAX's note, the PNGs within 1 LSB of the one-process run;
 - ``--mode train`` at ``--mesh_shape 2`` and ``2,2``, two steps: JAX's
   ``Mesh:`` line, the losses and PSNR of the one-process run, the ranks'
-  parameters equal, the JAX CLI's ``config.json`` mesh fields.
+  parameters equal, the JAX CLI's ``config.json`` mesh fields; and
+  ``--mesh_shape 4 --batch_size 4 --grad_accum 2``, one step, against the
+  one-process ``--grad_accum 2`` run.
 """
 
 import ast
@@ -59,8 +63,11 @@ def _infer_argv(tmp, name, ckpt, shape=None):
     return argv + (["--mesh_shape", shape] if shape else [])
 
 
-def _train_argv(tmp, name, shape=None):
-    argv = ["--mode", "train", "--data_dir", str(tmp / "data"), "--batch_size", "2",
+def _train_argv(tmp, name, shape=None, accum=False):
+    """Two steps at batch 2, or with ``accum`` one at batch 4 over two
+    micro-batches."""
+    batch = ["--batch_size", "4", "--grad_accum", "2"] if accum else ["--batch_size", "2"]
+    argv = ["--mode", "train", "--data_dir", str(tmp / "data"), *batch,
             "--crop_size", "32", "--num_epoch", "1", "--print_freq", "1",
             "--model_save_dir", str(tmp / name), "--result_dir", str(tmp / f"{name}_img"),
             *TINY_ARGS]
@@ -81,7 +88,8 @@ def world(tmp_path_factory):
     clis = [("infer_2", _infer_argv(tmp, "infer_2", ckpt, "2")),
             ("infer_1,2", _infer_argv(tmp, "infer_1,2", ckpt, "1,2")),
             ("train_2", _train_argv(tmp, "train_2", "2")),
-            ("train_2,2", _train_argv(tmp, "train_2,2", "2,2"))]
+            ("train_2,2", _train_argv(tmp, "train_2,2", "2,2")),
+            ("train_4_accum", _train_argv(tmp, "train_4_accum", "4", accum=True))]
     results = spawn(ranks.run_dp_cases, (4,), "cpu", timeout_s=240,
                     args=(_train_case(), clis))
     return results, tmp, ckpt
@@ -89,13 +97,17 @@ def world(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def one_process(world):
-    """The one-process ``--mode train`` printout (its PNGs under ``infer_one``)."""
+    """The one-process ``--mode train`` printouts, at batch 2 and at batch 4
+    over two micro-batches (its PNGs under ``infer_one``)."""
     _, tmp, ckpt = world
     single = io.StringIO()
     with contextlib.redirect_stdout(single):
         main(_infer_argv(tmp, "infer_one", ckpt))
         main(_train_argv(tmp, "train_one"))
-    return single.getvalue()
+    accum = io.StringIO()
+    with contextlib.redirect_stdout(accum):
+        main(_train_argv(tmp, "train_one_accum", accum=True))
+    return single.getvalue(), accum.getvalue()
 
 
 def _grads_close(got, want):
@@ -105,14 +117,17 @@ def _grads_close(got, want):
         np.testing.assert_allclose(got[k], g, rtol=0, atol=1e-3 * scale + 1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("case", ["dp", "dpsp"])
+@pytest.mark.parametrize("case", ["dp", "dpsp", "dp_accum"])
 def test_train_step_matches_one_process(world, case):
-    """The ``(4,)`` and ``(2, 2)`` steps against one process on the whole
-    batch with the same masks; every rank's parameters equal to the bit."""
+    """The ``(4,)`` and ``(2, 2)`` steps, and the ``(4,)`` step over two
+    micro-batches, against one process on the whole batch (over the same
+    micro-batches) with the same masks; every rank's parameters equal to the
+    bit."""
     seed, hazy, gt = _train_case()
     model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
                       **ranks.TINY)
-    loss, grads, params = ranks.train_step(model, hazy, gt)
+    loss, grads, params = ranks.train_step(model, hazy, gt,
+                                           grad_accum=2 if case == "dp_accum" else 1)
     steps = [r[case] for r in world[0]]
     for loss_r, grads_r, params_r in steps:
         np.testing.assert_allclose(loss_r, loss, rtol=1e-5)
@@ -164,19 +179,38 @@ def test_train_cli_matches_one_process(world, one_process, shape):
     mesh = dict(zip(axes, (int(s) for s in shape.split(","))))
     text = reports[0]["stdout"]
     assert text.splitlines()[0] == f"Mesh: {mesh} over {n} devices"
-    want = _loss_lines(one_process)
+    want = _loss_lines(one_process[0])
     got = _loss_lines(text)
     assert len(got) == len(want) == 2
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     np.testing.assert_allclose(got[1], want[1], rtol=1e-4)
-    psnr = lambda t: float(re.search(r"Average PSNR (\S+) dB", t).group(1))
-    assert abs(psnr(text) - psnr(one_process)) <= 0.01
+    assert abs(_psnr(text) - _psnr(one_process[0])) <= 0.01
     assert len({r["result"]["param_sha256"] for r in reports}) == 1
     with open(tmp / f"train_{shape}" / "config.json") as f:
         cfg = json.load(f)
     assert cfg["train"]["mesh_shape"] == [int(s) for s in shape.split(",")]
     assert cfg["train"]["mesh_axes"] == list(axes)
     assert cfg["model"]["seq_axis"] == ("seq" if len(axes) == 2 else None)
+
+
+def _psnr(text):
+    return float(re.search(r"Average PSNR (\S+) dB", text).group(1))
+
+
+def test_train_cli_accum_matches_one_process(world, one_process):
+    """``--mode train --mesh_shape 4 --batch_size 4 --grad_accum 2`` (each
+    micro-batch of 2 rows on ranks 0 and 1, ranks 2 and 3 with none) runs
+    the one-process ``--grad_accum 2`` step: its losses and PSNR, equal
+    parameters on every rank."""
+    results, _, _ = world
+    reports = [r["cli"]["train_4_accum"] for r in results]
+    text = reports[0]["stdout"]
+    assert text.splitlines()[0] == "Mesh: {'data': 4} over 4 devices"
+    got, want = _loss_lines(text), _loss_lines(one_process[1])
+    assert len(got) == len(want) == 1
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    assert abs(_psnr(text) - _psnr(one_process[1])) <= 0.01
+    assert len({r["result"]["param_sha256"] for r in reports}) == 1
 
 
 def _jax_auto_mesh_shape(n_devices):

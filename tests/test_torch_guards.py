@@ -133,6 +133,10 @@ def test_kernel_matches_plain_on_card(reverse, out_dtype):
     (16, 2, 16, 1000, False, torch.bfloat16, torch.bfloat16, 4),    # bf16 in and out
     (24, 4, 16, 999, True, torch.bfloat16, torch.float32, 6),       # L % 8 != 0: plain loads
     (24, 4, 16, 999, False, torch.float32, torch.bfloat16, 6),
+    (384, 1, 16, 1024, False, torch.float32, torch.float32, None),  # Mamba1D's one group
+    (384, 1, 16, 1024, True, torch.float32, torch.float32, None),
+    # force_fp32 under the bf16 recipe: fp32 operands, bf16 y_accum and out
+    (192, 1, 16, 1024, True, torch.float32, torch.bfloat16, None),
 ])
 def test_forward_kernel_tiles_match_plain_on_card(dim, G, N, L, reverse, in_dtype, out_dtype,
                                                   tile):
@@ -397,6 +401,8 @@ def test_segment_kernels_match_plain_on_card(dim, G, L, reverse, accum, in_dtype
     (16, 1, 4, 1000, True, torch.float32, None),   # N = 4
     (16, 2, 16, 1000, True, torch.bfloat16, 4),    # bf16 in
     (24, 4, 16, 999, False, torch.bfloat16, 6),    # L % 8 != 0: the scalar loads and atomics
+    (384, 1, 16, 1024, False, torch.float32, None),  # Mamba1D's one group of 384 channels
+    (384, 1, 16, 1024, True, torch.float32, None),
 ])
 def test_backward_kernel_tiles_match_plain_on_card(dim, G, N, L, reverse, in_dtype, tile):
     """K2 alone (K1's chunk states, then one K2 launch) against the plain
@@ -472,6 +478,28 @@ def test_train_step_on_card_matches_plain():
         grads.append({k: p.grad for k, p in model.named_parameters()})
     for k, w in grads[1].items():
         assert (grads[0][k] - w).abs().max().item() <= 1e-3 * w.abs().max().item() + 1e-5, k
+
+
+@pytest.mark.cuda
+def test_variant_forward_on_card_matches_plain():
+    """A tiny model of an SS2D variant (the dwconv3 out-norm, the raw z gate,
+    force_fp32, no depthwise conv, v1 init) on the kernels against the plain
+    scans: the outputs at the model tests' tolerance, 48 K1 launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x = torch.rand(1, 32, 32, 3, generator=torch.Generator().manual_seed(0)).cuda()
+    variant = dict(forward_type="v2dwconv3nozact", ssm_conv=1, ssm_init="v1", **TINY)
+    outs = []
+    for backend in ("cuda", "chunked"):
+        model = build_net("1mlp_g2", device="cuda", scan_backend=backend,
+                          generator=torch.Generator().manual_seed(3), **variant)
+        before = selective_scan_cuda.launches
+        with torch.no_grad():
+            outs.append(model(x))
+        torch.cuda.synchronize()
+        assert selective_scan_cuda.launches - before == (48 if backend == "cuda" else 0)
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=3e-4)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ package and against the port on one rank.
 - ``selective_scan_seq_sharded`` (forward and gradients) against JAX's on a
   2-device CPU mesh, at ``tests/test_parallel.py``'s tolerances: rtol 1e-4
   / atol 1e-5 forward, rtol 1e-3 / atol 1e-5 x the largest gradient;
-- the seq-sharded SS2D against the port's dense SS2D, same tolerances;
+- the seq-sharded SS2D against the port's dense SS2D, same tolerances, at
+  v4 and at a variant (``v2dwconv3noz``, no depthwise conv, v1 init);
 - one ``--mode train`` step of the seq-sharded tiny model against the
   single-rank step: the same loss, gradients and parameters, equal on both
   ranks;
@@ -48,6 +49,8 @@ torch.set_num_threads(1)
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 TINY_ARGS = ["--vssg_dim", "16", "--ssm_d_state", "4", "--device", "cpu"]
 SS2D_KW = dict(d_model=16, d_state=4, scan_backend="chunked")
+# a variant on the sharded path: another out-norm, the z flags, other laws
+VARIANT_KW = dict(SS2D_KW, forward_type="v2dwconv3noz", d_conv=1, initialize="v1")
 
 
 def _scan_case(batch=2, dim=8, N=4, L=128, G=2, seed=0):
@@ -62,13 +65,13 @@ def _scan_case(batch=2, dim=8, N=4, L=128, G=2, seed=0):
     return arrays, f32(n(batch, dim, L))
 
 
-def _ss2d_case():
+def _ss2d_case(kw=SS2D_KW):
     with torch.random.fork_rng():  # the layers' default init draws from it
         torch.manual_seed(3)
-        ss2d = SS2D(**SS2D_KW)
+        ss2d = SS2D(**kw)
     ss2d.reset_parameters_from(torch.Generator().manual_seed(3))
     x = np.random.default_rng(3).standard_normal((1, 16, 16, 16)).astype(np.float32) * 0.5
-    return SS2D_KW, {k: v.numpy() for k, v in ss2d.state_dict().items()}, x
+    return kw, {k: v.numpy() for k, v in ss2d.state_dict().items()}, x
 
 
 def _train_case():
@@ -93,7 +96,8 @@ def world(sp_inputs):
     tmp, data, ckpt = sp_inputs
     argv = ["--mode", "test", "--data_dir", data, "--test_model", ckpt, *TINY_ARGS]
     results = spawn(ranks.run_cases, (1, 2), "cpu", timeout_s=240, args=(
-        _scan_case(), _ss2d_case(), _train_case(),
+        _scan_case(), {"ss2d": _ss2d_case(), "ss2d_variant": _ss2d_case(VARIANT_KW)},
+        _train_case(),
         argv + ["--mesh_shape", "1,2", "--model_save_dir", str(tmp / "w2"),
                 "--result_dir", str(tmp / "i2")]))
     single = io.StringIO()
@@ -137,18 +141,27 @@ def test_seq_sharded_scan_keeps_no_state_sized_tensor(world):
         assert r["scan_max_saved"] < state
 
 
-def test_seq_sharded_ss2d_matches_dense(world):
-    kw, state, x = _ss2d_case()
+def _check_ss2d_against_dense(world, name, kw=SS2D_KW):
+    kw, state, x = _ss2d_case(kw)
     dense = SS2D(**kw)
     dense.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
     y, grads = ranks.ss2d_out_grads(dense, x)
     scale = max(float(np.abs(g).max()) for g in grads.values())
     for r in world[0]:
-        y_sp, grads_sp = r["ss2d"]
+        y_sp, grads_sp = r[name]
         np.testing.assert_allclose(y_sp, y, **FWD_TOL)
         assert set(grads_sp) == set(grads)
         for k, g in grads.items():
             np.testing.assert_allclose(grads_sp[k], g, rtol=1e-3, atol=1e-5 * scale, err_msg=k)
+
+
+def test_seq_sharded_ss2d_matches_dense(world):
+    _check_ss2d_against_dense(world, "ss2d")
+
+
+def test_seq_sharded_ss2d_variant_matches_dense(world):
+    """``v2dwconv3noz`` on the seq-sharded path against the dense path."""
+    _check_ss2d_against_dense(world, "ss2d_variant", VARIANT_KW)
 
 
 def test_sp_train_step_matches_single_rank(world):

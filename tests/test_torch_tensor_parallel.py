@@ -10,7 +10,8 @@ in one process.
   mesh (``backend="chunked"``), at ``tests/test_parallel.py``'s tolerances:
   rtol 1e-4 / atol 1e-5 forward, rtol 1e-3 / atol 1e-5 x the largest
   gradient;
-- the channel-split SS2D against the port's dense SS2D, same tolerances;
+- the channel-split SS2D against the port's dense SS2D, same tolerances, at
+  v4 and at a variant (``v4softmaxnozact``, v2 init);
 - one train step of the tiny model with channel-split scans against one
   process: loss within rtol 1e-5, gradients within 1e-3 max|g| + 1e-5, the
   ranks' parameters equal bit for bit;
@@ -37,6 +38,8 @@ torch.set_num_threads(1)
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 SS2D_KW = dict(d_model=16, d_state=4, scan_backend="chunked")
+# a variant on the sharded path: another out-norm, the z flags, other laws
+VARIANT_KW = dict(SS2D_KW, forward_type="v4softmaxnozact", initialize="v2")
 
 
 def _scan_case(G, reverse, accum, batch=2, dim=16, N=4, L=96, seed=0):
@@ -56,13 +59,13 @@ SCAN_CASES = {"whole_group": dict(G=2, reverse=False, accum=True),
               "sub_group": dict(G=1, reverse=True, accum=False)}
 
 
-def _ss2d_case():
+def _ss2d_case(kw=SS2D_KW):
     with torch.random.fork_rng():  # the layers' default init draws from it
         torch.manual_seed(4)
-        ss2d = SS2D(**SS2D_KW)
+        ss2d = SS2D(**kw)
     ss2d.reset_parameters_from(torch.Generator().manual_seed(4))
     x = np.random.default_rng(4).standard_normal((2, 16, 16, 16)).astype(np.float32) * 0.5
-    return SS2D_KW, {k: v.numpy() for k, v in ss2d.state_dict().items()}, x
+    return kw, {k: v.numpy() for k, v in ss2d.state_dict().items()}, x
 
 
 def _train_case():
@@ -75,7 +78,8 @@ def _train_case():
 def world():
     cases = {k: _scan_case(**kw) for k, kw in SCAN_CASES.items()}
     return spawn(ranks.run_tp_cases, (1, 2), "cpu", timeout_s=240, axes=("data", "model"),
-                 args=(cases, _ss2d_case(), _train_case()))
+                 args=(cases, {"ss2d": _ss2d_case(), "ss2d_variant": _ss2d_case(VARIANT_KW)},
+                       _train_case()))
 
 
 def _jax_scan(arrays, dy, reverse, accum):
@@ -106,18 +110,27 @@ def test_tp_scan_matches_jax(world, case):
             np.testing.assert_allclose(g, g_j, rtol=1e-3, atol=1e-5 * scale, err_msg=name)
 
 
-def test_tp_ss2d_matches_dense(world):
-    kw, state, x = _ss2d_case()
+def _check_ss2d_against_dense(world, name, kw=SS2D_KW):
+    kw, state, x = _ss2d_case(kw)
     dense = SS2D(**kw)
     dense.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
     y, grads = ranks.ss2d_out_grads(dense, x)
     scale = max(float(np.abs(g).max()) for g in grads.values())
     for r in world:
-        y_tp, grads_tp = r["ss2d"]
+        y_tp, grads_tp = r[name]
         np.testing.assert_allclose(y_tp, y, **FWD_TOL)
         assert set(grads_tp) == set(grads)
         for k, g in grads.items():
             np.testing.assert_allclose(grads_tp[k], g, rtol=1e-3, atol=1e-5 * scale, err_msg=k)
+
+
+def test_tp_ss2d_matches_dense(world):
+    _check_ss2d_against_dense(world, "ss2d")
+
+
+def test_tp_ss2d_variant_matches_dense(world):
+    """``v4softmaxnozact`` on the channel-split path against the dense path."""
+    _check_ss2d_against_dense(world, "ss2d_variant", VARIANT_KW)
 
 
 def test_tp_train_step_matches_one_process(world):

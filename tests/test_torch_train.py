@@ -302,3 +302,36 @@ def test_train_cli_two_epochs_then_resume(tmp_path, capsys):
     assert all(math.isfinite(r["pixel_loss"]) and math.isfinite(r["fft_loss"])
                for r in steps)
     assert [r["epoch"] for r in rows if "psnr" in r] == [1, 2, 3]
+
+
+def test_train_writes_tensorboard_events_as_jax(tmp_path):
+    """``--mode train`` with a log file writes the JAX trainer's TensorBoard
+    scalars to ``<model_save_dir>/runs``: "Pixel Loss" and "FFT Loss" at each
+    print, at the global step ``iter_idx + (epoch - 1) * max_iter`` (the step
+    of ``train.metrics.jsonl``), "PSNR" by epoch, each value the one in
+    ``train.metrics.jsonl``."""
+    event_accumulator = pytest.importorskip(
+        "tensorboard.backend.event_processing.event_accumulator",
+        reason="no tensorboard package: the trainer writes no events, as JAX's")
+    data, out = str(tmp_path / "data"), str(tmp_path / "weights")
+    make_synthetic_dataset(data, n_train=2, n_test=1, hw=(32, 32))
+    main(["--mode", "train", "--device", "cpu", "--vssg_dim", "16", "--ssm_d_state", "4",
+          "--data_dir", data, "--batch_size", "2", "--crop_size", "32", "--print_freq", "1",
+          "--num_epoch", "2", "--num_worker", "1", "--model_save_dir", out])
+    with open(os.path.join(out, "train.metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    acc = event_accumulator.EventAccumulator(os.path.join(out, "runs"))
+    acc.Reload()
+    assert sorted(acc.Tags()["scalars"]) == ["FFT Loss", "PSNR", "Pixel Loss"]
+    events = {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+              for tag in ("Pixel Loss", "FFT Loss", "PSNR")}
+    steps = [r for r in rows if "step" in r]
+    assert [s for s, _ in events["Pixel Loss"]] == [r["step"] for r in steps] == [0, 1, 2, 3]
+    for tag, key in (("Pixel Loss", "pixel_loss"), ("FFT Loss", "fft_loss")):
+        assert [s for s, _ in events[tag]] == [r["step"] for r in steps]
+        np.testing.assert_allclose([v for _, v in events[tag]], [r[key] for r in steps],
+                                   rtol=1e-6)  # the events hold fp32
+    psnr = [r for r in rows if "psnr" in r]
+    assert [s for s, _ in events["PSNR"]] == [r["epoch"] for r in psnr] == [1]
+    np.testing.assert_allclose([v for _, v in events["PSNR"]], [r["psnr"] for r in psnr],
+                               rtol=1e-6)

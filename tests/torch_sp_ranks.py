@@ -14,9 +14,14 @@ import torch
 from focalnet_tpu_torch.main import main
 from focalnet_tpu_torch.models import build_net
 from focalnet_tpu_torch.models.ss2d import SS2D, set_dropout_generator
-from focalnet_tpu_torch.parallel import local_rows, make_mesh, selective_scan_seq_sharded
+from focalnet_tpu_torch.parallel import make_mesh, selective_scan_seq_sharded
 from focalnet_tpu_torch.parallel.tp_scan import selective_scan_tp
-from focalnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+from focalnet_tpu_torch.train.trainer import (
+    batch_rows,
+    make_optimizer,
+    make_train_step,
+    micro_batch_rows,
+)
 
 TINY = dict(vssg_dim=16, ssm_d_state=4)
 SCAN_NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
@@ -38,25 +43,30 @@ def ss2d_out_grads(ss2d, x):
     return y.detach().numpy(), {k: p.grad.numpy() for k, p in ss2d.named_parameters()}
 
 
-def train_step(model, hazy, gt, mesh=None):
-    """One train step of ``model`` (loss, clip, Adam) on this rank's rows of
-    the batch, with the step-seeded mask generator drawing the whole batch's
-    masks: the loss, the (clipped) gradients and the parameters after the
-    step."""
+def train_step(model, hazy, gt, mesh=None, grad_accum=1):
+    """One train step of ``model`` (loss, clip, Adam) over ``grad_accum``
+    micro-batches, on this rank's rows of each (maybe none), with the
+    step-seeded mask generator drawing each micro-batch's masks whole: the
+    loss, the (clipped) gradients and the parameters after the step."""
     model.train()
-    rows = local_rows(len(hazy), mesh)
-    shard = ((mesh.axis_index("data"), mesh.shape["data"])
-             if mesh is not None and "data" in mesh.shape else (0, 1))
+    batch = len(hazy)
+    rows, shard = batch_rows(batch, grad_accum, mesh), None
+    if rows is None:
+        rows = slice(None)
+    else:
+        shard = (micro_batch_rows(batch, grad_accum, mesh).start, batch // grad_accum)
     set_dropout_generator(model, torch.Generator().manual_seed(7), shard)
-    step = make_train_step(model, make_optimizer(model), mesh=mesh)
+    step = make_train_step(model, make_optimizer(model), grad_accum=grad_accum, mesh=mesh,
+                           batch_size=batch)
     out = step(torch.tensor(hazy[rows]), torch.tensor(gt[rows]))
     return (float(out["loss"]), {k: p.grad.numpy().copy() for k, p in model.named_parameters()},
             {k: p.detach().numpy().copy() for k, p in model.named_parameters()})
 
 
-def run_cases(mesh, scan_case, ss2d_case, train_case, test_argv):
+def run_cases(mesh, scan_case, ss2d_cases, train_case, test_argv):
     """Every case on this rank: the sequence-sharded scan (both directions)
-    with the largest tensor its graph saves, the seq-sharded SS2D, one train
+    with the largest tensor its graph saves, the seq-sharded SS2D of each of
+    ``ss2d_cases`` (by name: its keyword arguments, state dict and input), one train
     step of the seq-sharded model, and ``--mode test --mesh_shape 1,2``
     through the CLI on the running world (what rank 0 printed)."""
     out = {}
@@ -71,10 +81,10 @@ def run_cases(mesh, scan_case, ss2d_case, train_case, test_argv):
                 arrays, dy, reverse)
     out["scan_max_saved"] = max(sizes)
 
-    ss2d_kw, state, x = ss2d_case
-    ss2d = SS2D(**ss2d_kw, seq_mesh=mesh, seq_axis="seq")
-    ss2d.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
-    out["ss2d"] = ss2d_out_grads(ss2d, x)
+    for name, (ss2d_kw, state, x) in ss2d_cases.items():
+        ss2d = SS2D(**ss2d_kw, seq_mesh=mesh, seq_axis="seq")
+        ss2d.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+        out[name] = ss2d_out_grads(ss2d, x)
 
     seed, hazy, gt = train_case
     model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
@@ -94,7 +104,8 @@ def _cli(argv):
 
 def run_dp_cases(mesh, train_case, clis):
     """The 4-rank world of the data-parallel tests: one train step of the
-    tiny model (DropPath on) on the ``(4,)`` data-parallel mesh and on a
+    tiny model (DropPath on) on the ``(4,)`` data-parallel mesh, once more
+    there over two micro-batches of 2 (ranks 2 and 3 hold no rows), and on a
     ``(2, 2)`` dp x sp mesh, then each CLI command of ``clis`` on the
     running world (those of two ranks on ranks 0 and 1; None on the others)."""
     seed, hazy, gt = train_case
@@ -102,6 +113,9 @@ def run_dp_cases(mesh, train_case, clis):
     model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
                       **TINY)
     out["dp"] = train_step(model, hazy, gt, mesh)
+    model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
+                      **TINY)
+    out["dp_accum"] = train_step(model, hazy, gt, mesh, grad_accum=2)
     dpsp = make_mesh((2, 2), mesh.device)
     model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
                       seq_mesh=dpsp, seq_axis="seq", data_axis="data", **TINY)
@@ -110,11 +124,12 @@ def run_dp_cases(mesh, train_case, clis):
     return out
 
 
-def run_tp_cases(mesh, scan_cases, ss2d_case, train_case):
+def run_tp_cases(mesh, scan_cases, ss2d_cases, train_case):
     """The 2-rank ``(data, model) = (1, 2)`` world of the tensor-parallel
     tests: the channel-split scan of each of ``scan_cases`` (y and the
-    gradients of ``sum(y * dy)``), the channel-split SS2D, and one train step
-    of the tiny model with channel-split scans."""
+    gradients of ``sum(y * dy)``), the channel-split SS2D of each of
+    ``ss2d_cases``, and one train step of the tiny model with channel-split
+    scans."""
     out = {}
     for name, (arrays, dy, reverse, accum) in scan_cases.items():
         names = SCAN_NAMES + (("y_accum",) if accum else ())
@@ -124,10 +139,10 @@ def run_tp_cases(mesh, scan_cases, ss2d_case, train_case):
         (y * torch.tensor(dy)).sum().backward()
         out[name] = y.detach().numpy(), [t.grad.numpy() for t in leaves]
 
-    ss2d_kw, state, x = ss2d_case
-    ss2d = SS2D(**ss2d_kw, seq_mesh=mesh, tp_axis="model")
-    ss2d.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
-    out["ss2d"] = ss2d_out_grads(ss2d, x)
+    for name, (ss2d_kw, state, x) in ss2d_cases.items():
+        ss2d = SS2D(**ss2d_kw, seq_mesh=mesh, tp_axis="model")
+        ss2d.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+        out[name] = ss2d_out_grads(ss2d, x)
 
     seed, hazy, gt = train_case
     model = build_net("1mlp_g2", device="cpu", generator=torch.Generator().manual_seed(seed),
