@@ -111,10 +111,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch's mean and biased variance and moves the running statistics 0.1 of
     the way to them, the variance too being the biased one (flax's update;
     ``nn.BatchNorm2d`` moves it to the unbiased variance); in eval mode it
-    normalises by the running statistics."""
-
-    def __init__(self, num_features, eps=1e-5, momentum=0.1):
-        super().__init__(num_features, eps=eps, momentum=momentum)
+    normalises by the running statistics.  ``nn.BatchNorm2d``'s defaults, eps
+    1e-5 and momentum 0.1, are flax's epsilon and momentum 0.9."""
 
     def forward(self, x):
         xf = x.float()

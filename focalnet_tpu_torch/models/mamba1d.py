@@ -101,13 +101,12 @@ class Mamba1D(nn.Module):
 class MambaSS2D(nn.Module):
     """Bidirectional 1-D Mamba over the flattened H W grid: the forward and
     the flipped pass (two :class:`Mamba1D`, ``d_model = d_inner``), summed,
-    then gated.  The activation is SiLU whatever ``act`` says, as in the JAX
-    module."""
+    then gated.  The activation is SiLU (the JAX module's ``act`` field is
+    read nowhere, and the port has none)."""
 
     def __init__(self, d_model, d_state=16, ssm_ratio=2.0, d_conv=3, conv_bias=True,
-                 act="silu", bias=False, dropout=0.0, scan_backend="auto"):
+                 bias=False, dropout=0.0, scan_backend="auto"):
         super().__init__()
-        del act
         self.d_inner = D = int(ssm_ratio * d_model)
         self.in_proj = Linear(d_model, 2 * D, bias=bias)
         self.conv2d = Conv2d(D, D, d_conv, padding=(d_conv - 1) // 2, groups=D,

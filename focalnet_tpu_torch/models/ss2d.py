@@ -290,12 +290,13 @@ class SS2D(nn.Module):
         kind = self.out_norm_kind
         if kind == "dwconv3":
             return self.out_norm(y.float()).permute(0, 2, 3, 1)
+        if kind == "softmax":  # along the contiguous H W axis of NCHW
+            Bsz, D, H, W = y.shape
+            y = torch.softmax(y.float().reshape(Bsz, D, H * W), dim=-1).reshape(y.shape)
+            return y.permute(0, 2, 3, 1)
         y = y.permute(0, 2, 3, 1)
         if kind == "ln":
             return self.out_norm(y.float())
-        if kind == "softmax":
-            Bsz, H, W, D = y.shape
-            return torch.softmax(y.float().reshape(Bsz, H * W, D), dim=1).reshape(y.shape)
         if kind == "sigmoid":
             return torch.sigmoid(y)
         return y

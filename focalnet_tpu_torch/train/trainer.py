@@ -10,8 +10,8 @@ log-scraper formats (``Time: ... Epoch: ... Iter: ...``, ``EPOCH: ...``,
 ``Average PSNR``).  Beside ``train.log`` and ``train.metrics.jsonl`` it writes
 the reference's TensorBoard scalars ("Pixel Loss" and "FFT Loss" at each
 print on the global-step axis, "PSNR" by epoch) to
-``<model_save_dir>/runs`` wherever ``torch.utils.tensorboard`` imports, as
-the JAX trainer does.
+``<model_save_dir>/runs`` wherever the ``tensorboard`` package imports, as
+the JAX trainer does through torch's writer.
 
 The model trains in ``train()`` mode: DropPath and Dropout draw from one
 generator on the card, seeded from ``seed`` and the step index at every
@@ -171,15 +171,50 @@ def make_train_step(model, optimizer, fft_weight: float = 0.1,
     return train_step
 
 
+class _ScalarEvents:
+    """TensorBoard scalars in ``<log_dir>/events.out.tfevents.*``: the file
+    ``torch.utils.tensorboard.SummaryWriter.add_scalar`` writes (a version
+    event, then one event a scalar holding a ``simple_value`` summary at its
+    step), through tensorboard's record format and plain file writes.
+    ``SummaryWriter`` loads TensorFlow, where it is installed, for its file
+    layer (about 15 s an import on a CPU host), and the port needs none of
+    it."""
+
+    def __init__(self, log_dir: str):
+        import socket
+        import time
+
+        from tensorboard.compat.proto.event_pb2 import Event
+        from tensorboard.compat.proto.summary_pb2 import Summary
+        from tensorboard.summary.writer.record_writer import RecordWriter
+
+        os.makedirs(log_dir, exist_ok=True)
+        name = f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}.{os.getpid()}"
+        self._records = RecordWriter(open(os.path.join(log_dir, name), "wb"))
+        self._event, self._summary, self._clock = Event, Summary, time.time
+        self._write(file_version="brain.Event:2")
+
+    def _write(self, **fields):
+        self._records.write(self._event(wall_time=self._clock(), **fields).SerializeToString())
+        self._records.flush()
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        self._write(step=step, summary=self._summary(
+            value=[self._summary.Value(tag=tag, simple_value=float(value))]))
+
+    def close(self) -> None:
+        self._records.close()
+
+
 def _summary_writer(log_dir: str):
-    """A TensorBoard ``SummaryWriter`` on ``log_dir``, or None where it does
-    not import (no ``tensorboard`` package): the JAX trainer writes the
-    events only where the writer imports, and so does the port."""
+    """The scalar event writer on ``log_dir``, or None where it cannot be
+    made, as where the ``tensorboard`` package is missing (the JAX trainer
+    writes the events only where torch's writer, which needs that package,
+    imports)."""
     try:
-        from torch.utils.tensorboard import SummaryWriter
-    except Exception:
+        return _ScalarEvents(log_dir)
+    except Exception:  # as the JAX trainer: no writer, no events
         return None
-    return SummaryWriter(log_dir)
 
 
 def step_seed(seed: int, step: int) -> int:
