@@ -67,7 +67,15 @@ step, and K1 and K2 alone at that shape, held and timed; and ``grad_accum``
 under data parallelism (``dp_accum``: ``--mesh_shape 4 --batch_size 4
 --grad_accum 2`` on four ranks, two of them without rows, and batch 2 over
 two ranks, against one process over the same micro-batches, and that
-command through the CLI for 3 steps).
+command through the CLI for 3 steps).  The native data loader
+(``data/csrc/loader.cpp``, built with g++ beside the kernels; the build line
+names its codecs): decode and u8 decode bit for bit against the numpy codec
+on every file of a synthetic RESIDE-ITS split at 460x620 (rows with every
+PNG filter) and on palette, 16-bit, gray+alpha and Adam7 PNGs, batch-4
+pair batches at crop 256 and 1, 4, 8 threads against the plain version, the
+encoder's round trip, and their times on the card's host (``loader``); then
+one epoch of ``--mode train`` on that split through it, 4 steps and 2
+validated images, with launch counts (``train_its_cli``).
 Each phase prints one JSON line; any failed check
 exits non-zero before the last line, which is ``{"ok": true,
 "device": {...}}``.
@@ -198,6 +206,11 @@ MAMBA_SCAN_DIM = 2 * 2 * MAMBA_DIM  # ssm_ratio 2, then Mamba1D's expand 2
 # MambaSS2D, kernel vs plain: max |got - want| <= MAMBA_RTOL max |want| for
 # the output and each parameter's gradient (MODEL_GRAD_TOL's relative part)
 MAMBA_RTOL = 1e-3
+# the native loader's slice: RESIDE-ITS's 460x620 images, 8 GTs with 2 hazy
+# images each (4 steps of TRAIN_BATCH), 1 test GT (2 validated images)
+ITS_HW = SOTS_HW
+ITS_TRAIN, ITS_TEST = 8, 1
+LOADER_THREADS = (1, 4, 8)
 
 
 def emit(**fields):
@@ -863,6 +876,182 @@ def phase_train_cli(cli_main, counters, tmp):
     if len(curves["content"]) != len(losses) or len(curves["fft"]) != len(losses):
         fail(f"parse_log found {len(curves['content'])} loss records, want {len(losses)}")
     return runs[0]
+
+
+def _png_variant(samples, depth, ctype, interlace=0, chunks=()):
+    """PNG bytes of (h, w, ch) ``samples`` at ``depth`` (16: big-endian;
+    below 8: packed), every filter in turn, Adam7 where ``interlace``."""
+    import struct
+    import zlib
+
+    from focalnet_tpu_torch.data.png import _filter_rows
+
+    def rows(sub):
+        h, w, ch = sub.shape
+        if depth == 16:
+            img = sub.astype(">u2").view(np.uint8).reshape(h, w, 2 * ch)
+        elif depth == 8:
+            img = sub.astype(np.uint8)
+        else:
+            bits = np.unpackbits(sub.astype(np.uint8)[..., None], axis=-1)[..., 8 - depth:]
+            img = np.packbits(bits.reshape(h, -1), axis=1)[..., None]
+        return _filter_rows(img, (0, 1, 2, 3, 4)).tobytes()
+
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+              (1, 0, 2, 2), (0, 1, 1, 2)) if interlace else ((0, 0, 1, 1),)
+    raw = b"".join(rows(samples[y0::dy, x0::dx]) for x0, y0, dx, dy in passes
+                   if samples[y0::dy, x0::dx].size)
+    h, w = samples.shape[:2]
+    body = [(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace)), *chunks,
+            (b"IDAT", zlib.compress(raw, 1)), (b"IEND", b"")]
+    return b"\x89PNG\r\n\x1a\n" + b"".join(
+        struct.pack(">I", len(b)) + k + b + struct.pack(">I", zlib.crc32(k + b)) for k, b in body)
+
+
+def phase_loader(tmp, card):
+    """The native loader (``data/csrc/loader.cpp``) against its plain
+    versions on a synthetic RESIDE-ITS split at 460x620 (every PNG row
+    filter in turn) and on one PNG each of palette (with tRNS), 16-bit RGB,
+    gray+alpha and Adam7 at that size: decode and u8 decode bit for bit
+    against the numpy codec, ``load_pair_batch`` at batch 4, crop 256 and 1,
+    4, 8 threads against ``load_pair_batch_ref``, the encoder's round trip.
+    Then times on the card's host: ms per decode (native against numpy; all
+    rows Paeth, and the split's mixed rows), per batch-4 pair batch by
+    threads, per encode, and ``TrainLoader``'s batches a second over an
+    epoch, each backend alone.  Returns the split's root and the times."""
+    from focalnet_tpu_torch.data import native_loader as nl
+    from focalnet_tpu_torch.data.png import read_png, to_rgb, write_png
+    from focalnet_tpu_torch.data.reside import TrainLoader, make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    root = make_synthetic_dataset(os.path.join(tmp, "its"), n_train=ITS_TRAIN,
+                                  n_test=ITS_TEST, hw=ITS_HW, seed=0)
+    write_s = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    h, w = ITS_HW
+    plte = rng.integers(0, 256, (256, 3), dtype=np.uint8).tobytes()
+    variants = {
+        "palette8_trns": _png_variant(rng.integers(0, 256, (h, w, 1)), 8, 3,
+                                      chunks=[(b"PLTE", plte), (b"tRNS", bytes(range(0, 256, 2)))]),
+        "rgb16": _png_variant(rng.integers(0, 65536, (h, w, 3)), 16, 2),
+        "gray_alpha": _png_variant(rng.integers(0, 256, (h, w, 2)), 8, 4),
+        "rgb8_adam7": _png_variant(rng.integers(0, 256, (h, w, 3)), 8, 2, interlace=1),
+    }
+    vdir = os.path.join(tmp, "png_variants")
+    os.makedirs(vdir, exist_ok=True)
+    files = []
+    for name, data in variants.items():
+        files.append(os.path.join(vdir, name + ".png"))
+        with open(files[-1], "wb") as f:
+            f.write(data)
+    for split in ("train", "test"):
+        for sub in ("hazy", "gt"):
+            d = os.path.join(root, split, sub)
+            files += [os.path.join(d, n) for n in sorted(os.listdir(d))]
+    # decode, u8 decode: bit for bit against the numpy codec
+    plain = {}
+    for path in files:
+        plain[path] = to_rgb(read_png(path))
+        got_u8, got = nl.decode_image_u8(path), nl.decode_image(path)
+        if not (np.array_equal(got_u8, plain[path])
+                and np.array_equal(got, plain[path].astype(np.float32) / 255.0)):
+            fail(f"loader: native decode of {path} differs from the numpy codec's")
+    # pair batches: 4 pairs, crop 256, seeds as TrainLoader draws them
+    tdir = os.path.join(root, "train")
+    names = sorted(os.listdir(os.path.join(tdir, "hazy")))[:TRAIN_BATCH]
+    hazy = [os.path.join(tdir, "hazy", n) for n in names]
+    gt = [os.path.join(tdir, "gt", n.split("_")[0] + ".png") for n in names]
+    seeds = np.random.default_rng(1234).integers(0, 2**31, TRAIN_BATCH).astype(np.uint64)
+    want = nl.load_pair_batch_ref(hazy, gt, 256, seeds)
+    for threads in LOADER_THREADS:
+        got = nl.load_pair_batch(hazy, gt, 256, seeds, threads)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"loader: load_pair_batch at {threads} threads differs from load_pair_batch_ref")
+    # the encoder's round trip, through the numpy codec
+    enc = os.path.join(tmp, "encoded.png")
+    img = plain[files[-1]]
+    nl.encode_png(enc, img)
+    if not np.array_equal(read_png(enc), img):
+        fail("loader: the native PNG encoder's round trip differs")
+
+    def host_ms(fn, reps):
+        fn()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    paeth = os.path.join(tmp, "paeth.png")
+    write_png(paeth, img, filters=(4,))
+    mixed = hazy[0]
+    decode_ms = {}
+    for name, path in (("paeth", paeth), ("mixed", mixed)):
+        decode_ms[name] = dict(native=host_ms(lambda: nl.decode_image(path), 20),
+                               numpy=host_ms(lambda: read_png(path), 3))
+    batch_ms = {t: host_ms(lambda t=t: nl.load_pair_batch(hazy, gt, 256, seeds, t), 10)
+                for t in LOADER_THREADS}
+    encode_ms = host_ms(lambda: nl.encode_png(enc, img), 10)
+    epoch = {}
+    for backend in ("native", "numpy"):
+        loader = TrainLoader(root, TRAIN_BATCH, crop=256, seed=1234, backend=backend)
+        t = time.perf_counter()
+        n = sum(1 for _ in loader.epoch())
+        secs = time.perf_counter() - t
+        epoch[backend] = dict(batches=n, seconds=secs, batches_per_s=n / secs)
+        if n != ITS_TRAIN * 2 // TRAIN_BATCH:
+            fail(f"loader: TrainLoader({backend!r}) gave {n} batches an epoch")
+    emit(phase="loader", build=nl.build_info(), hw=list(ITS_HW), files=len(files),
+         variants=sorted(variants), write_split_s=write_s, decode_ms=decode_ms,
+         pair_batch_ms_by_threads=batch_ms, encode_ms=encode_ms,
+         train_loader_epoch=epoch, host_cpus=os.cpu_count(), card=card)
+    return root, dict(decode_ms=decode_ms, batch_ms=batch_ms, epoch=epoch)
+
+
+def phase_train_its_cli(cli_main, counters, root, tmp, step_ms, card):
+    """``--mode train`` through the CLI for one epoch of the synthetic
+    RESIDE-ITS split at 460x620 (4 steps at batch 4, crop 256; 2 images
+    validated) through the native loader: 48 K1 launches a step and a
+    validated image, 48 K2 a step; 4 pair batches and 4 decodes; finite
+    losses; the run's seconds beside ``grad_256``'s step by events."""
+    from focalnet_tpu_torch.data import native_loader as nl
+
+    out = os.path.join(tmp, "its_weights")
+    for c in counters:
+        c.launches = 0
+    nl.load_pair_batch.batches = nl.decode_image.images = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["--mode", "train", "--mesh_shape", "1", "--data_dir", root,
+                  "--batch_size", str(TRAIN_BATCH), "--crop_size", "256", "--num_epoch", "1",
+                  "--valid_freq", "1", "--print_freq", "1", "--model_save_dir", out,
+                  "--result_dir", os.path.join(tmp, "its_images")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    steps, val_images = ITS_TRAIN * 2 // TRAIN_BATCH, ITS_TEST * 2
+    expected = [LAUNCHES_PER_FORWARD * (steps + val_images), LAUNCHES_PER_FORWARD * steps]
+    with open(os.path.join(out, "train.metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [(r["pixel_loss"], r["fft_loss"]) for r in rows if "step" in r]
+    loader = dict(pair_batches=nl.load_pair_batch.batches, decodes=nl.decode_image.images)
+    emit(phase="train_its_cli", hw=list(ITS_HW), steps=len(losses), seconds=seconds,
+         step_ms_by_events_grad_256=step_ms, launches_fwd=launches[0],
+         launches_bwd=launches[1], expected_launches=expected, loader=loader, losses=losses,
+         psnr=[r["psnr"] for r in rows if "psnr" in r], card=card)
+    if launches != expected:
+        fail(f"train_its_cli: launches (K1, K2) {launches}, expected {expected}")
+    if loader != dict(pair_batches=steps, decodes=2 * val_images):
+        fail(f"train_its_cli: the native loader made {loader}, expected {steps} pair "
+             f"batches and {2 * val_images} decodes")
+    if len(losses) != steps or not all(math.isfinite(v) for r in losses for v in r):
+        fail(f"train_its_cli: losses {losses}")
+    print(f"--mode train, 1 epoch at {ITS_HW[0]}x{ITS_HW[1]} through the native loader: "
+          f"{seconds:.3f} s ({steps} steps, {val_images} validated images); a step "
+          f"{step_ms:.3f} ms by events (grad_256); {card}", flush=True)
+    return launches
 
 
 def _eval_lines(text):
@@ -2554,6 +2743,7 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "focalnet_tpu_torch")):
         fail("focalnet_tpu_torch/ is not beside this script: run it from a checkout")
     sys.path.insert(0, ROOT)
+    from focalnet_tpu_torch.data import native_loader
     from focalnet_tpu_torch.data.png import read_png, write_png
     from focalnet_tpu_torch.main import main as cli_main
     from focalnet_tpu_torch.models import build_net
@@ -2619,9 +2809,17 @@ def main():
             bind = bind_fwd if k == "fwd" else bind_bwd
             builds.append((src, d, lambda d=d, src=src, bind=bind: bind(_build.load_library(src, d))))
     prebuilt = [os.path.exists(_build.library_path(src, d)) for src, d, _ in builds]
-    with ThreadPoolExecutor(len(builds)) as ex:
+    with ThreadPoolExecutor(len(builds) + 1) as ex:
+        # the native data loader (host C++, g++) beside the kernels
+        loader_build = ex.submit(timed_build, native_loader.get_lib)
         futures = [ex.submit(timed_build, fn) for _, _, fn in builds]
         results = [f.result() for f in futures]
+        loader_secs, _ = loader_build.result()
+    flags = native_loader.link_flags()
+    emit(phase="build", source=os.path.relpath(native_loader.SOURCE, ROOT), seconds=loader_secs,
+         compiler=_build.find_cxx(), flags=list(_build.CXX_FLAGS) + flags,
+         library=os.path.relpath(_build.host_library_path(native_loader.SOURCE, flags), ROOT),
+         codecs=native_loader.build_info())
     for (src, d, _), pre, (secs, _) in zip(builds, prebuilt, results):
         lib_path = _build.library_path(src, d)
         with open(lib_path + ".log") as f:
@@ -2725,10 +2923,15 @@ def main():
         infer_launches = phase_infer_cli(cli_main, counters, tmp, ckpt, rng)
 
         # 7. whole gradient and train step at batch 4, 256x256
-        phase_grad(build_net, counters, card)
+        step_ms = phase_grad(build_net, counters, card)
 
         # 8. train through the CLI, then resume
         train_launches = phase_train_cli(cli_main, counters, tmp)
+
+        # 8a. the native loader against its plain versions, timed; then one
+        # epoch of --mode train at RESIDE-ITS's image size through it
+        its_root, _ = phase_loader(tmp, card)
+        its_launches = phase_train_its_cli(cli_main, counters, its_root, tmp, step_ms, card)
 
         # 8b. sequence parallelism, --mesh_shape 1,2: --mode test and train
         sp_test_launches, sp_test_time = phase_sp_test_cli(cli_main, tmp, ckpt,
@@ -2781,6 +2984,8 @@ def main():
             baseline_ms=base_ms, baseline_ms_b4_l16384=base_ms4,
             tile_channels=tile_of(1, 192), tile_channels_b4=tile_of(TRAIN_BATCH, 192),
         ))
+    for e, n in zip(entries, its_launches):
+        e["launches_train_its_cli"] = n
     entries[0]["launches_serve_3_requests"] = serve_launches
     entries[0]["launches_forward_640"] = fwd640_launches
     entries[0]["launches_test_cli"] = test_launches

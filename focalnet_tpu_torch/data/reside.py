@@ -3,46 +3,84 @@
 Layout ``{root}/{split}/hazy/*.png`` with the GT of hazy ``8_1_0.9.png`` at
 ``{root}/{split}/gt/8.png`` (the name up to the first ``_``); png, jpg and
 jpeg only.  Training takes a paired random crop and a paired horizontal flip;
-validation loads pairs one by one at full size.  numpy only: PNG goes
-through the port's own codec (:mod:`.png`), other formats need PIL.  The
-same seed gives the same order, crops and flips as the JAX package's loader
-on its PIL path.  Its native C++ loader is not ported.
+validation loads pairs one by one at full size.  Images decode through the
+port's native C++ loader (:mod:`.native_loader`): PNG always, JPEG where its
+build links libjpeg; other formats, and JPEG without libjpeg, need PIL.
+``TrainLoader``'s native backend (the default) gives the same order, crops
+and flips as the JAX package's loader on its native backend for the same
+seed, and its ``"numpy"`` backend, the plain version (the numpy PNG codec,
+numpy crops and flips), those of the JAX loader's PIL path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
+import struct
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Tuple
 
 import numpy as np
 
-from focalnet_tpu_torch.data.png import decode_png, write_png
+from focalnet_tpu_torch.data import native_loader
+from focalnet_tpu_torch.data.png import decode_png, to_rgb, write_png
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_MAGIC = b"\xff\xd8"
 _EXTS = ("png", "jpg", "jpeg")
+BACKENDS = ("native", "numpy")
+# every PNG row filter in turn, as PNG writers mix them in photographs
+SYNTHETIC_FILTERS = (0, 1, 2, 3, 4)
+
+
+def _native_size(path: str):
+    """The (max_h, max_w) to decode ``path`` with natively: a PNG's own size,
+    JAX's 4096 limit for a JPEG where the build links libjpeg.  ``None``
+    for a format that the build lacks (PIL reads it)."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head.startswith(_PNG_SIGNATURE):
+        w, h = struct.unpack(">II", head[16:24]) if len(head) == 24 else (1, 1)
+        return max(h, 1), max(w, 1)
+    if head.startswith(_JPEG_MAGIC) and native_loader.has_jpeg():
+        return 4096, 4096
+    return None
 
 
 def _load_image_u8(path: str) -> np.ndarray:
-    """uint8 RGB (H, W, 3), the serving upload format.  PNG goes through the
-    port's own codec (gray is replicated, alpha dropped, as PIL's
-    ``convert("RGB")`` does); other formats need PIL."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data.startswith(_PNG_SIGNATURE):
-        img = decode_png(data)
-        if img.shape[2] <= 2:  # gray, gray+alpha
-            return np.repeat(img[..., :1], 3, axis=2)
-        return np.ascontiguousarray(img[..., :3])
+    """uint8 RGB (H, W, 3), the serving upload format: the native decode
+    (gray replicated, alpha dropped, as PIL's ``convert("RGB")`` does), or
+    PIL for a format the build lacks."""
+    size = _native_size(path)
+    if size is not None:
+        return native_loader.decode_image_u8(path, *size)
     with pil_image(path).open(path) as im:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
 def _load_image(path: str) -> np.ndarray:
-    """float32 RGB (H, W, 3) in [0, 1]."""
-    return _load_image_u8(path).astype(np.float32) / 255.0
+    """float32 RGB (H, W, 3) in [0, 1], ``u8 / 255.0``: the native decode,
+    or PIL for a format the build lacks."""
+    size = _native_size(path)
+    if size is not None:
+        return native_loader.decode_image(path, *size)
+    with pil_image(path).open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+
+
+def _load_image_plain(path: str) -> np.ndarray:
+    """float32 RGB (H, W, 3) in [0, 1] by the plain path: the numpy PNG
+    codec, PIL for other formats."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_PNG_SIGNATURE):
+        img = to_rgb(decode_png(data))
+    else:
+        with pil_image(path).open(path) as im:
+            img = np.asarray(im.convert("RGB"), dtype=np.uint8)
+    return img.astype(np.float32) / 255.0
 
 
 def pil_image(path: str):
@@ -76,11 +114,14 @@ class ResideDataset:
     def gt_name(self, hazy_name: str) -> str:
         return hazy_name.split("_")[0] + ".png"
 
-    def load_pair(self, idx: int) -> Tuple[np.ndarray, np.ndarray, str]:
+    def paths(self, idx: int) -> Tuple[str, str]:
         name = self.image_list[idx]
-        hazy = _load_image(os.path.join(self.image_dir, "hazy", name))
-        gt = _load_image(os.path.join(self.image_dir, "gt", self.gt_name(name)))
-        return hazy, gt, name
+        return (os.path.join(self.image_dir, "hazy", name),
+                os.path.join(self.image_dir, "gt", self.gt_name(name)))
+
+    def load_pair(self, idx: int) -> Tuple[np.ndarray, np.ndarray, str]:
+        hazy, gt = self.paths(idx)
+        return _load_image(hazy), _load_image(gt), self.image_list[idx]
 
 
 def paired_random_crop(img, label, size: int, rng: np.random.Generator):
@@ -106,20 +147,28 @@ class TrainLoader:
 
     Yields (hazy, gt) float32 arrays (batch, crop, crop, 3).  An epoch is
     len(dataset) // batch batches: the partial last batch is dropped, as the
-    JAX loader does.  A producer thread decodes ``prefetch`` batches ahead,
-    each batch's examples in a pool of ``num_workers`` threads.  ``rows``
-    (indices into each batch) makes it decode and yield only those rows of
-    every batch, with the crops and flips of the whole batch (a data-parallel
-    rank's share; with no rows, empty arrays)."""
+    JAX loader does.  A producer thread assembles ``prefetch`` batches ahead.
+    ``backend="native"`` (the default) decodes, crops and flips each batch
+    in ``num_workers`` C++ threads (:func:`.native_loader.load_pair_batch`;
+    an image smaller than the crop raises); ``"numpy"``, the plain version,
+    decodes with the numpy codec and crops (zero-padding a small image) and
+    flips with numpy draws, each example in a pool of ``num_workers``
+    threads.  ``rows`` (indices into each batch) makes it decode and yield
+    only those rows of every batch, with the crops and flips of the whole
+    batch (a data-parallel rank's share; with no rows, empty arrays)."""
 
     def __init__(self, path: str, batch_size: int, num_workers: int = 8,
-                 crop: int = 256, seed: int = 1234, prefetch: int = 4, rows=None):
+                 crop: int = 256, seed: int = 1234, prefetch: int = 4, rows=None,
+                 backend: str = "native"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
         self.ds = ResideDataset(os.path.join(path, "train"))
         self.batch_size = batch_size
-        self.rows = None if rows is None else np.asarray(rows)
+        self.rows = None if rows is None else np.asarray(rows, dtype=np.int64)
         self.crop = crop
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.backend = backend
         self._epoch_rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -127,9 +176,18 @@ class TrainLoader:
 
     def _make_example(self, idx: int, seed: int):
         rng = np.random.default_rng(seed)
-        hazy, gt, _ = self.ds.load_pair(idx)
+        hazy, gt = (_load_image_plain(p) for p in self.ds.paths(idx))
         hazy, gt = paired_random_crop(hazy, gt, self.crop, rng)
         return paired_hflip(hazy, gt, rng)
+
+    def _make_batch(self, ex, idxs, seeds):
+        if self.backend == "native":
+            paths = [self.ds.paths(i) for i in idxs]
+            return native_loader.load_pair_batch(
+                [p[0] for p in paths], [p[1] for p in paths], self.crop, seeds,
+                self.num_workers)
+        pairs = list(ex.map(self._make_example, idxs, seeds))
+        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
     def epoch(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         order = self._epoch_rng.permutation(len(self.ds))
@@ -139,7 +197,8 @@ class TrainLoader:
 
         def producer():
             try:
-                with ThreadPoolExecutor(self.num_workers) as ex:
+                with (ThreadPoolExecutor(self.num_workers) if self.backend == "numpy"
+                      else contextlib.nullcontext()) as ex:
                     for b in range(len(self)):
                         if stop.is_set():
                             return
@@ -150,9 +209,7 @@ class TrainLoader:
                             empty = np.zeros((0, self.crop, self.crop, 3), np.float32)
                             q.put((empty, empty))
                             continue
-                        pairs = list(ex.map(self._make_example, idxs, seeds[idxs]))
-                        q.put((np.stack([p[0] for p in pairs]),
-                               np.stack([p[1] for p in pairs])))
+                        q.put(self._make_batch(ex, idxs, seeds[idxs]))
                 q.put(None)
             except Exception as e:  # handed to the consumer, which re-raises
                 q.put(e)
@@ -199,7 +256,8 @@ def make_synthetic_dataset(root: str, n_train: int = 8, n_test: int = 4,
     """Write a RESIDE-layout dataset of random images, with the same pixels
     as the JAX package's ``make_synthetic_dataset`` for the same arguments:
     each GT ``i.png`` gets two hazed versions ``i_k_t.png`` (I = J t + A (1 - t)).
-    PNG through the port's codec."""
+    PNG through the numpy codec, the rows taking the five filters in turn
+    (``SYNTHETIC_FILTERS``), as real PNG writers mix them."""
     rng = np.random.default_rng(seed)
     H, W = hw
     for split, n in [("train", n_train), ("test", n_test)]:
@@ -212,8 +270,9 @@ def make_synthetic_dataset(root: str, n_train: int = 8, n_test: int = 4,
             t = rng.uniform(0.5, 0.9)
             A = rng.uniform(0.7, 1.0)
             hazy = gt * t + A * (1 - t)
-            write_png(os.path.join(gt_dir, f"{i}.png"), (gt * 255).astype(np.uint8))
+            write_png(os.path.join(gt_dir, f"{i}.png"), (gt * 255).astype(np.uint8),
+                      filters=SYNTHETIC_FILTERS)
             for k in range(1, 3):
                 write_png(os.path.join(hazy_dir, f"{i}_{k}_{t:.1f}.png"),
-                          (hazy * 255).astype(np.uint8))
+                          (hazy * 255).astype(np.uint8), filters=SYNTHETIC_FILTERS)
     return root

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from focalnet_tpu_torch.data.png import write_png
+from focalnet_tpu_torch.data.native_loader import encode_png
 from focalnet_tpu_torch.data.reside import pil_image
 
 
@@ -119,11 +119,11 @@ def eval_ssim(pred: np.ndarray, label: np.ndarray, padded_hw) -> np.ndarray:
 
 def save_image(pred: np.ndarray, path: str) -> None:
     """Save float (H, W, 3) in [0, 1] with the reference's +0.5/255 offset and
-    a truncating uint8 cast.  PNG through the port's codec; other formats
-    need PIL."""
+    a truncating uint8 cast.  PNG through the native encoder (level 1, the
+    Sub filter); other formats need PIL."""
     x = np.clip(pred + 0.5 / 255.0, 0.0, 1.0)
     u8 = (x * 255).astype(np.uint8)
     if path.lower().endswith(".png"):
-        write_png(path, u8)
+        encode_png(path, u8)
         return
     pil_image(path).fromarray(u8).save(path)

@@ -186,7 +186,8 @@ def test_dataset_and_loaders_match_jax(tmp_path):
     make_synthetic_dataset(str(tmp_path / "port"), n_train=3, n_test=2, hw=(40, 48))
     jl = JaxTrainLoader(str(tmp_path / "jax"), 2, num_workers=2, crop=32, seed=5,
                         backend="pil")
-    pl = TrainLoader(str(tmp_path / "port"), 2, num_workers=2, crop=32, seed=5)
+    pl = TrainLoader(str(tmp_path / "port"), 2, num_workers=2, crop=32, seed=5,
+                     backend="numpy")
     assert len(jl) == len(pl) == 3
     for _ in range(2):
         got, want = list(pl.epoch()), list(jl.epoch())
