@@ -1,0 +1,4 @@
+"""The most device memory allocated during the window, GiB."""
+
+def read(run):
+    return run.window_peak_bytes / 2**30 if run.window_peak_bytes else None
