@@ -1,6 +1,7 @@
 """Loads tests/suite_plugin.py for the whole session, and holds it to what
-it promises: a time limit per test, and no persistent compile cache in a
-plain `pytest tests/` process."""
+it promises: a time limit per test, no persistent compile cache in a plain
+`pytest tests/` process, and the `slow` marker on the tests its list
+names."""
 
 import os
 import time
@@ -89,3 +90,31 @@ def test_cli_main_leaves_the_compile_cache_off(tmp_path, monkeypatch):
         jax.config.update("jax_persistent_cache_min_compile_time_secs",
                           before[1])
         cc.reset_cache()
+
+
+def test_slow_list_names_collected_pre_port_tests(pytester, monkeypatch):
+    """With the plugin loaded as the Tier-1 run loads it, `-m slow` collects
+    exactly the tests that `SLOW_TESTS` names, so a renamed test leaves no
+    stale entry, and `-m 'not slow'` collects none of them.  No entry is a
+    test of the port."""
+    from suite_plugin import SLOW_TESTS
+
+    assert SLOW_TESTS
+    assert not [t for t in SLOW_TESTS if t.startswith("test_torch_")]
+    here = os.path.dirname(os.path.abspath(__file__))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(filter(None, [
+        os.path.dirname(here), os.environ.get("PYTHONPATH")])))
+    files = sorted({t.split("::")[0] for t in SLOW_TESTS})
+    paths = [os.path.join(here, f) for f in files + ["test_suite_plugin.py"]]
+
+    def collect(expr):
+        result = pytester.runpytest_subprocess(
+            *paths, "-m", expr, "--collect-only", "-q",
+            "-p", "no:cacheprovider")
+        assert result.ret == 0, result.stdout.str()
+        return {os.path.basename(line.strip())
+                for line in result.stdout.lines if "::" in line}
+
+    assert collect("slow") == SLOW_TESTS
+    fast = collect("not slow")
+    assert fast and not fast & SLOW_TESTS
