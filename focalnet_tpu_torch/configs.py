@@ -10,6 +10,9 @@ among them.
     1mlp      — VSSG, gl_merge=True, ps_global=4, ps_local=2
     1mlp_g2   — VSSG, gl_merge=False, ps_global=2 (the flagship)
     1mlp_g4   — VSSG, gl_merge=False, ps_global=4
+    mambair_dn — MambaIR's colour denoiser (:class:`MambaIRConfig`): one
+                 scale, 6 residual groups of 6 SS2D + channel-attention blocks
+                 at width 180; serves and evaluates, does not train
 """
 
 from __future__ import annotations
@@ -110,6 +113,28 @@ class TrainConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class MambaIRConfig:
+    """MambaIR (Guo et al., ECCV 2024; ``basicsr/archs/mambair_arch.py``)
+    with ``upscale`` 1 and no upsampler: the colour Gaussian denoiser.  The
+    SS2D fields are :class:`ModelConfig`'s; ``ssm_ratio`` is MambaIR's
+    ``mlp_ratio``, which it passes to SS2D as ``expand``.  Its other SS2D
+    settings are SS2D's defaults (VMamba v0's operator)."""
+
+    embed_dim: int = 180
+    depths: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)  # blocks per residual group
+    ssm_d_state: int = 16
+    ssm_ratio: float = 2.0
+    compress_ratio: int = 3   # CAB: embed_dim -> embed_dim // compress_ratio
+    squeeze_factor: int = 30  # channel attention: embed_dim -> embed_dim // squeeze_factor
+    img_range: float = 1.0
+    rgb_mean: Tuple[float, float, float] = (0.4488, 0.4371, 0.4040)
+    scan_backend: str = "auto"
+
+    def replace(self, **kw) -> "MambaIRConfig":
+        return dataclasses.replace(self, **kw)
+
+
 PRESETS = {
     "baseline": ModelConfig(block_type="resblock", num_res=1),
     "1mlp": ModelConfig(
@@ -121,4 +146,5 @@ PRESETS = {
     "1mlp_g4": ModelConfig(
         gl_merge=False, patch_size_global=4, patch_size_local=2, mlp_ratio=1.0
     ),
+    "mambair_dn": MambaIRConfig(),
 }

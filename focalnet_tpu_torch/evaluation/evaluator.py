@@ -5,9 +5,10 @@
 skimage-PSNR over the test split at full size.  ``evaluate`` is ``--mode
 test``, the reference ``eval.py``'s protocol: both PSNR formulas, the pooled
 SSIM, the time per image, and optionally the images.  Each image is
-reflect-padded to a multiple of 32 and the prediction cropped back and
-clamped.  The printed lines are the reference's, byte for byte where
-``utils/plot_logs.py`` reads them ("Average PSNR %.2f dB").
+reflect-padded to a multiple of ``factor`` (32, MIMO-UNet's; 1, no padding,
+for MambaIR) and the prediction cropped back and clamped.  The printed lines
+are the reference's, byte for byte where ``utils/plot_logs.py`` reads them
+("Average PSNR %.2f dB").
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from focalnet_tpu_torch.data.reside import EvalLoader
+from focalnet_tpu_torch.evaluation.infer import restored
 from focalnet_tpu_torch.evaluation.metrics import (
     eval_ssim,
     pad_to_multiple,
@@ -34,7 +36,7 @@ from focalnet_tpu_torch.utils.meters import Adder
 @contextlib.contextmanager
 def _forward(model):
     """Yield ``fwd``: (B, H, W, 3) float32 array -> the full-size output of
-    ``model`` (a MIMOUNet, on its device) as a host array.  The model runs in
+    ``model`` (on its device) as a host array.  The model runs in
     eval mode and is put back in the mode it was in."""
     device = next(model.parameters()).device
     was_training = model.training
@@ -42,7 +44,7 @@ def _forward(model):
 
     def fwd(x: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            return model(torch.from_numpy(x).to(device))[2].cpu().numpy()
+            return restored(model, torch.from_numpy(x).to(device)).cpu().numpy()
 
     try:
         yield fwd
@@ -113,9 +115,9 @@ def evaluate(model, data_dir: str, result_dir: Optional[str] = None,
             time_adder(elapsed)
 
             # the reference's H, W: the NEXT multiple of 32 where h or w is
-            # one already (eval.py:34), for SSIM's pool grid
-            H = (h + factor) // factor * factor
-            W = (w + factor) // factor * factor
+            # one already (eval.py:34), for SSIM's pool grid, whatever the padding
+            H = (h + 32) // 32 * 32
+            W = (w + 32) // 32 * 32
             pred = np.clip(pred[:, :h, :w], 0.0, 1.0)
 
             psnr_val = psnr_mse(pred, gt)

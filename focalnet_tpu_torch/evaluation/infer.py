@@ -73,6 +73,13 @@ def _pipeline(items, decode_fn, run_fn, save_cap: int):
         f.result()
 
 
+def restored(model, x: torch.Tensor) -> torch.Tensor:
+    """The full-size output of ``model`` on ``x``: the last of a MIMO-UNet's
+    three scales, or a single-output model's one."""
+    out = model(x)
+    return out[-1] if isinstance(out, (list, tuple)) else out
+
+
 def u8_forward(model, device: torch.device):
     """``fwd``: (B, H, W, 3) uint8 array -> the full-size output of ``model``
     on ``device``, a tensor there.  The upload is uint8 and x/255 runs on the
@@ -81,7 +88,7 @@ def u8_forward(model, device: torch.device):
     def fwd(x_u8: np.ndarray) -> torch.Tensor:
         with torch.inference_mode():
             x = torch.from_numpy(x_u8).to(device).float() / 255.0
-            return model(x)[2]
+            return restored(model, x)
 
     return fwd
 
@@ -171,13 +178,14 @@ def infer(model, input_path: str, result_dir: str, factor: int = 32,
           batch_size: int = 1, tile: int = 0, tile_overlap: int = 32,
           device=None, mesh=None) -> dict:
     """Dehaze every image under ``input_path`` (a file or a directory) into
-    ``result_dir`` with ``model`` (a MIMOUNet) on ``device`` (default: the
-    CUDA card; without one this raises).  Returns {"count", "avg_time"}.
+    ``result_dir`` with ``model`` (a MIMOUNet or a MambaIR) on ``device``
+    (default: the CUDA card; without one this raises).  Returns {"count", "avg_time"}.
 
     ``batch_size > 1`` groups the files by padded shape (from their headers)
     and runs up to ``batch_size`` of one shape per forward; a partial group
-    runs at its own size.  ``factor`` (a multiple of 32) is the padding multiple: a
-    coarser one makes fewer distinct shapes.  ``tile`` (a multiple of 32, 0
+    runs at its own size.  ``factor`` (a multiple of the model's
+    ``pad_multiple``) is the padding multiple: a coarser one makes fewer
+    distinct shapes.  ``tile`` (a multiple of 32, 0
     = whole images) runs every image as overlapping (tile, tile) crops
     (:func:`tiled_forward`), ``batch_size`` of them per forward.
 

@@ -35,8 +35,8 @@ def serve(model, result_dir: str, factor: int = 32, tile: int = 0,
           tile_overlap: int = 32, batch_size: int = 1,
           warm_shapes: Optional[List[Tuple[int, int]]] = None,
           inp=None, out=None, device=None) -> dict:
-    """Run the serving loop with ``model`` (a MIMOUNet) on ``device`` (default:
-    the CUDA card; without one this raises).
+    """Run the serving loop with ``model`` (a MIMOUNet or a MambaIR) on
+    ``device`` (default: the CUDA card; without one this raises).
 
     ``tile``/``tile_overlap``/``batch_size`` select chop mode
     (:func:`..infer.tiled_forward`; ``batch_size`` batches tiles).

@@ -10,9 +10,13 @@ Usage:
     python -m focalnet_tpu_torch.main --mesh_shape 2 --batch_size 4         # data parallel
     python -m focalnet_tpu_torch.main --mode test --mesh_shape 1,2 --test_model <pkl>
 
-``--preset`` takes the JAX CLI's four (``baseline``, ``1mlp``, ``1mlp_g2``,
-``1mlp_g4``) in every mode; ``--compute_dtype bfloat16 --ssm_out_dtype
-bfloat16`` is the JAX package's bf16 training recipe.
+``--preset`` takes the JAX CLI's four MIMO-UNet dehazers (``baseline``,
+``1mlp``, ``1mlp_g2``, ``1mlp_g4``) in every mode; ``--compute_dtype bfloat16
+--ssm_out_dtype bfloat16`` is the JAX package's bf16 training recipe.
+``--preset mambair_dn`` is MambaIR's colour denoiser (fp32, one output, no
+padding: its ``--pad_factor`` defaults to 1):
+``--mode serve``, ``test`` and ``infer`` run it, ``--mode train`` refuses it,
+as the trainer's multi-scale loss is MIMO-UNet's.
 
 The defaults are the JAX CLI's: ``--mode train``, ``--test_model
 results/weights/Best.pkl`` (the reference-format counterpart of JAX's Orbax
@@ -66,10 +70,27 @@ def main(argv=None, inp=None, out=None):
     mode returns; on a mesh of ranks each rank's report (a list by rank, or
     this rank's report when a process group is already running)."""
     args = parse_args(argv)
+    _check_preset(args)
     shape = _ranks_shape(args)
     if shape is None:
         return _main(args, None, inp, out)
     return _run_mesh(args, argv, shape)
+
+
+def _check_preset(args):
+    """Refuse at once what ``--preset``'s network cannot run: training, or
+    sharded scans (MambaIR)."""
+    from focalnet_tpu_torch.models import model_class
+    from focalnet_tpu_torch.parallel.mesh import parse_mesh_shape
+
+    net = model_class(args.preset)
+    if args.mode == "train" and not net.trains:
+        raise SystemExit(f"error: --preset {args.preset} serves and evaluates (--mode serve, "
+                         "test, infer) and does not train: the trainer's loss is MIMO-UNet's")
+    shape = parse_mesh_shape(args.mesh_shape)
+    if not net.shards_scans and shape is not None and len(shape) > 1:
+        raise SystemExit(f"error: --preset {args.preset} does not shard its scans: "
+                         "--mesh_shape takes one axis")
 
 
 def _ranks_shape(args):
@@ -194,6 +215,9 @@ def _main(args, mesh, inp=None, out=None):
         crop_size=args.crop_size, seed=args.seed,
         model_save_dir=args.model_save_dir,
     )
+    unknown = sorted(set(overrides) - {f.name for f in dataclasses.fields(PRESETS[args.preset])})
+    if unknown:
+        raise SystemExit(f"error: --preset {args.preset} has no {', '.join(unknown)}")
     lead = mesh is None or mesh.rank == 0
     if lead:
         os.makedirs(args.model_save_dir, exist_ok=True)
@@ -228,9 +252,10 @@ def _run_mode(args, train_cfg, device, overrides, inp, out, mesh=None):
         raise SystemExit(f"error: --mode {args.mode} needs --test_model")
     if args.mode == "infer" and not args.input:
         raise SystemExit("error: --mode infer needs --input <image file or directory>")
-    if args.mode != "test" and (args.pad_factor % 32 or args.pad_factor <= 0):
-        raise SystemExit("error: --pad_factor must be a positive multiple of 32")
     model = build_net(args.preset, device=device, seq_mesh=seq_mesh, **overrides)
+    multiple = model.pad_multiple
+    if args.mode != "test" and (args.pad_factor % multiple or args.pad_factor <= 0):
+        raise SystemExit(f"error: --pad_factor must be a positive multiple of {multiple}")
     model.load_state_dict(load_checkpoint(args.test_model), strict=True)
     shape = train_cfg.mesh_shape
 
@@ -242,7 +267,8 @@ def _run_mode(args, train_cfg, device, overrides, inp, out, mesh=None):
                   "--mesh_shape (use \"1,M\" for sequence-parallel eval)")
         # every rank runs the forwards (they are collective); rank 0 saves
         return evaluate(model, args.data_dir, result_dir=args.result_dir,
-                        save_images=args.save_image and (mesh is None or mesh.rank == 0))
+                        save_images=args.save_image and (mesh is None or mesh.rank == 0),
+                        factor=multiple)
     if args.mode == "infer":
         from focalnet_tpu_torch.evaluation.infer import infer
 
@@ -271,16 +297,14 @@ def _flops_report(preset, device, overrides):
     """Params and GFLOPs at 256x256, batch 1 (the JAX package's report): the
     counted term (matrix products and convolutions, by ``FlopCounterMode`` on
     the meta device, which computes nothing) plus the scan cost model, which
-    only VSSG blocks have.  Returns the three numbers."""
-    from focalnet_tpu_torch.configs import PRESETS
+    the network's scans have.  Returns the three numbers."""
     from focalnet_tpu_torch.models import build_net
-    from focalnet_tpu_torch.utils.flops import mimounet_scan_flops, model_flops
+    from focalnet_tpu_torch.utils.flops import model_flops
 
-    cfg = PRESETS[preset].replace(**overrides)
     model = build_net(preset, device=device, **overrides)
     n_params = sum(p.numel() for p in model.parameters())
     flops = model_flops(model.to("meta"), torch.zeros(1, 256, 256, 3, device="meta"))
-    scan = mimounet_scan_flops(cfg, (256, 256)) if cfg.block_type == "vssg" else 0
+    scan = model.scan_flops(model.cfg, (256, 256))
     print(f"params: {n_params/1e6:.3f}M")
     print(f"counted flops @256^2: {flops/1e9:.2f} GFLOPs"
           f" + scan {scan/1e9:.2f} GFLOPs (9BLDN model)"
@@ -291,7 +315,9 @@ def _flops_report(preset, device, overrides):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="focalnet_tpu_torch")
     p.add_argument("--preset", type=str, default="1mlp_g2",
-                   choices=["baseline", "1mlp", "1mlp_g2", "1mlp_g4"])
+                   choices=["baseline", "1mlp", "1mlp_g2", "1mlp_g4", "mambair_dn"],
+                   help="a MIMO-UNet dehazer (every mode), or mambair_dn, MambaIR's "
+                        "colour denoiser (serve, test and infer; it does not train)")
     p.add_argument("--mode", type=str, default="train",
                    choices=["train", "test", "infer", "serve"])
     p.add_argument("--input", type=str, default="",
@@ -304,9 +330,11 @@ def parse_args(argv=None):
     p.add_argument("--result_dir", type=str, default="results/images",
                    help="where --mode test and infer save images, and serve's "
                         "answers go when a request names no output path")
-    p.add_argument("--pad_factor", type=int, default=32,
+    p.add_argument("--pad_factor", type=int, default=None,
                    help="--mode infer, serve: reflect-pad H, W up to multiples "
-                        "of this (multiple of 32); test and validation keep 32")
+                        "of this, a multiple of the model's own (default: the "
+                        "model's own, 32 for MIMO-UNet, 1 for mambair_dn); test "
+                        "and validation keep the model's own")
     p.add_argument("--tile", type=int, default=0,
                    help="--mode infer, serve: overlapping (tile, tile) crops, "
                         "multiple of 32; 0 = whole-image")
@@ -371,7 +399,12 @@ def parse_args(argv=None):
     p.add_argument("--ssm_d_state", type=int, default=0)
     p.add_argument("--scan_backend", type=str, default="",
                    choices=["", "auto", "cuda", "chunked", "assoc", "ref"])
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.pad_factor is None:
+        from focalnet_tpu_torch.models import model_class
+
+        args.pad_factor = model_class(args.preset).pad_multiple
+    return args
 
 
 if __name__ == "__main__":

@@ -13,6 +13,9 @@ not, and weights move between the two packages through ``utils/convert.py``.
   the softplus-inverse dt bias, A_log = log(1..N), D = 1 (``initialize``
   v0); v1 and v2 take :func:`normal` and :func:`uniform` (flax's
   ``normal(1)`` and ``uniform(0.1)``) for some of them.
+- MambaIR (``models/mambair.py``) takes the same laws (its ``_init_weights``
+  cuts the normal at +-2 absolute, timm's default); its blocks' skip scales
+  start at one.
 """
 
 from __future__ import annotations

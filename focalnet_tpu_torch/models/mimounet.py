@@ -15,11 +15,10 @@ import contextlib
 import torch
 from torch import nn
 
-from focalnet_tpu_torch.configs import PRESETS, SCAN_BACKENDS, ModelConfig
-from focalnet_tpu_torch.models.initializers import init_weights
+from focalnet_tpu_torch.configs import SCAN_BACKENDS, ModelConfig
 from focalnet_tpu_torch.models.layers import FAM, SCM, BasicConv, ResBlock, nearest_down2
 from focalnet_tpu_torch.models.vssg import VSSG
-from focalnet_tpu_torch.utils.device import resolve_device
+from focalnet_tpu_torch.utils.flops import mimounet_scan_flops
 
 
 _DTYPES = {"": None, "float32": None, "fp32": None, "bfloat16": torch.bfloat16}
@@ -78,6 +77,16 @@ class MIMOUNet(nn.Module):
     :class:`focalnet_tpu_torch.parallel.Mesh` of the sharded SS2D scans,
     sequence-parallel over ``cfg.seq_axis`` or channel-split over
     ``cfg.tp_axis`` (not config; no parameters)."""
+
+    pad_multiple = 32  # three scales, each VSSG patch 2 or 4 at a quarter of the size
+    trains = True
+    shards_scans = True
+
+    @staticmethod
+    def scan_flops(cfg: ModelConfig, hw, batch: int = 1) -> int:
+        """The scan cost model's FLOPs of a forward at ``hw``; none
+        without VSSG blocks."""
+        return mimounet_scan_flops(cfg, hw, batch) if cfg.block_type == "vssg" else 0
 
     def __init__(self, cfg: ModelConfig, seq_mesh=None):
         super().__init__()
@@ -146,21 +155,6 @@ class MIMOUNet(nn.Module):
         z = self.feat_extract[5](z)
         outputs.append(z + x)
         return [o.permute(0, 2, 3, 1).to(in_dtype) for o in outputs]
-
-
-def build_net(preset: str = "1mlp_g2", device=None, generator=None, seq_mesh=None,
-              **overrides) -> MIMOUNet:
-    """Build ``preset`` (with config ``overrides``) in eval mode on ``device``
-    (default: the CUDA card; without one this raises), its weights drawn by
-    the reference init laws from ``generator`` (default: seed 0).
-    ``seq_mesh``: the mesh of the sharded scans (pass ``seq_axis`` or
-    ``tp_axis``, and ``data_axis``, as overrides)."""
-    device = resolve_device(device)
-    cfg = PRESETS[preset].replace(**overrides)
-    model = MIMOUNet(cfg, seq_mesh)
-    init_weights(model, generator if generator is not None
-                 else torch.Generator().manual_seed(0))
-    return model.to(device).eval()
 
 
 @contextlib.contextmanager

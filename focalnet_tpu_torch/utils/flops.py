@@ -47,6 +47,14 @@ def mimounet_scan_flops(cfg, hw=(256, 256), batch: int = 1) -> int:
     return total
 
 
+def mambair_scan_flops(cfg, hw=(256, 256), batch: int = 1) -> int:
+    """Total selective-scan FLOPs for one MambaIR forward at ``hw``: every
+    block scans L = H*W over D = K_dirs * d_inner channels."""
+    H, W = hw
+    D = 4 * int(cfg.ssm_ratio * cfg.embed_dim)
+    return sum(cfg.depths) * scan_flops(batch, H * W, D, cfg.ssm_d_state)
+
+
 def model_flops(fn, *args) -> float:
     """FLOPs of one call ``fn(*args)`` by ``FlopCounterMode``.
 

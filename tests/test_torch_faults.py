@@ -117,8 +117,8 @@ def _choices(parse, argv):
 def test_cli_defaults_match_jax(tmp_path):
     """``parse_args([])``: the mode is JAX's (train), and the checkpoint to
     serve is the reference-format counterpart of JAX's Orbax default.
-    ``--preset``, ``--compute_dtype`` and ``--ssm_out_dtype`` take JAX's
-    choices, and ``config.json`` written under ``--compute_dtype bfloat16
+    ``--preset`` takes JAX's choices and ``mambair_dn``, ``--compute_dtype``
+    and ``--ssm_out_dtype`` JAX's choices, and ``config.json`` written under ``--compute_dtype bfloat16
     --ssm_out_dtype bfloat16`` holds JAX's fields and values."""
     port, ref = parse_args([]), jax_parse_args([])
     assert port.mode == ref.mode == "train"
@@ -126,9 +126,11 @@ def test_cli_defaults_match_jax(tmp_path):
     assert port.model_save_dir == ref.model_save_dir
     assert port.flops_report is ref.flops_report is False
     port_choices, jax_choices = _choices(parse_args, []), _choices(jax_parse_args, [])
-    for dest in ("preset", "compute_dtype", "ssm_out_dtype"):
+    for dest in ("compute_dtype", "ssm_out_dtype"):
         assert port_choices[dest] == jax_choices[dest], dest
-    assert port_choices["preset"] == ["baseline", "1mlp", "1mlp_g2", "1mlp_g4"]
+    # JAX's four MIMO-UNet presets, then MambaIR's denoiser, which has no JAX twin
+    assert port_choices["preset"] == jax_choices["preset"] + ["mambair_dn"]
+    assert port_choices["preset"] == ["baseline", "1mlp", "1mlp_g2", "1mlp_g4", "mambair_dn"]
 
     out = str(tmp_path / "w")
     recipe = ["--compute_dtype", "bfloat16", "--ssm_out_dtype", "bfloat16"]
